@@ -20,17 +20,39 @@ of which fails the run when it fails:
    on the TranCIM and TP-DCIM baselines at their published areas;
 6. SA -- ``co_explore(macro, bert_large_workload(), 5.0)`` with its
    defaults (simulated annealing, one kernel launch per step), within 1 %
-   of the exhaustive bert-large energy of phase 4.
+   of the exhaustive bert-large energy of phase 4;
+7. build    -- the ``cim_matmul``, ``flash_attention`` and
+   ``selective_scan`` libraries (their nvcc runs start in phase 2, beside
+   the strategy_eval build); print each compiler report;
+8. kernels  -- each against its plain version on the card, at the shapes
+   of tests/test_kernels.py, at the calibration microbench's shapes and at
+   full width (bert-large's FFN matmul, bert-large and yi-6b attention,
+   the falcon-mamba-7b scan), fp32 and bf16, each with its stated
+   tolerance; timed with CUDA events beside its plain version, its bound
+   and, where one PyTorch call computes the same function, that call
+   (timed as a yardstick only); AF's bf16 error <= PF's;
+9. calibrate -- ``python -m repro_torch.service calibrate --json -o
+   build/repro_torch/calibration.json`` in a subprocess, then the same
+   path in-process (``run_microbench`` -> ``fit_report`` +
+   ``fit_corrections`` -> ``save_calibration``) with the launch counts
+   reset just before and read just after (every kernel > 0); the two
+   agree on records and refit; the CLI's artifact pinned through
+   ``CIM_TUNER_CALIBRATION`` drives ``default_cost_model()`` and a
+   calibrated bert-large exhaustive ``co_explore`` on the card, which
+   must equal the same job with the plain versions and carry its own
+   job key.
 
-The second-to-last line is a JSON record of the kernel (launches, error,
+The second-to-last line is a JSON record of the kernels (launches, error,
 times, bound); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import cProfile
+import concurrent.futures
 import ctypes
 import json
 import math
+import os
 import pstats
 import statistics
 import subprocess
@@ -55,20 +77,22 @@ PAPER_GAINS = {"ee": 1.58, "th": 2.11}       # paper Fig. 7 geomeans
 #: fp64 outside the tensor cores (an FMA counts as two operations), HBM
 FP_PEAK = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_PER_S = 3.35e12
-
-#: floating-point operations (add, sub, mul, div, ceil, floor, min, max,
-#: compare) of matmul_cost evaluated for one (candidate, operator) under
-#: strategy s = 4*rev + 2*wp + pf, counted from its formula, plus the
-#: argmin's score compare: 101 shared terms, 11/22/16/33 for the IP-AF /
-#: IP-PF / WP-AF / WP-PF psum spill, 1 compare.
-FLOPS_PER_STRATEGY = (113, 124, 118, 135, 113, 124, 118, 135)
-#: per (candidate, operator): count-weighted latency and energy sums
-FLOPS_PER_OPERATOR = 4
-#: per candidate: SRAM bits, area, objective, area penalty, bandwidth rule
-FLOPS_PER_CANDIDATE = 38
+#: the peak for a matrix product's operations in each input type: bf16 on
+#: the tensor cores, fp32 outside them (the port keeps fp32 out of TF32)
+PRODUCT_PEAK = {"float32": 67e12, "bfloat16": 989e12}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/strategy_eval.cu"
 REPLACES = "src/repro/kernels/strategy_eval.py:58"
+#: the kernels of slice 2: their sources and the TPU kernels they replace
+NEW_KERNELS = {
+    "cim_matmul": ("src/repro_torch/kernels/csrc/cim_matmul.cu",
+                   "src/repro/kernels/cim_matmul.py:74"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:59"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:62"),
+}
+CALIBRATION_ARTIFACT = "build/repro_torch/calibration.json"
 
 
 def fail(msg: str) -> None:
@@ -100,16 +124,14 @@ def cuda_time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 def needed_flops(job, n_cands: int) -> float:
     """Operations the cost model needs on a [J, n_cands] grid: real
-    operators only (count > 0) and only the strategies each job allows."""
+    operators only (count > 0) and only the strategies each job allows
+    (the per-strategy counts of ``repro_torch.obs.profile``)."""
+    from repro_torch.obs.profile import strategy_eval_work
     counts = job.ops[..., 3].cpu().numpy()
     allowed = job.allowed.cpu().numpy() > 0
-    per_strategy = np.asarray(FLOPS_PER_STRATEGY, dtype=np.float64)
-    total = 0.0
-    for j in range(counts.shape[0]):
-        real_ops = int((counts[j] > 0).sum())
-        per_op = float(per_strategy[allowed[j]].sum()) + FLOPS_PER_OPERATOR
-        total += n_cands * (real_ops * per_op + FLOPS_PER_CANDIDATE)
-    return total
+    return sum(strategy_eval_work(n_cands, int((counts[j] > 0).sum()), 0,
+                                  allowed[j])[0]
+               for j in range(counts.shape[0]))
 
 
 def bound_ms(job, cand, dtype_name: str) -> tuple[float, str]:
@@ -124,6 +146,15 @@ def bound_ms(job, cand, dtype_name: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_summary(report: str) -> str:
+    """Kernels, register range and spill bytes of a ``-Xptxas -v`` report."""
+    import re
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", report))
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spill stores and loads")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,14 +162,14 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def start_fmad_variant(se) -> tuple[subprocess.Popen, Path]:
+def start_fmad_variant(se, build) -> tuple[subprocess.Popen, Path]:
     """Start building the kernel with FMA contraction allowed (-fmad=true),
     only to price the port's -fmad=false; nothing in the port loads it."""
-    out = se.build_dir() / "fmad-variant" / se.library_path().name
+    out = build.build_dir() / "fmad-variant" / se.library_path().name
     out.parent.mkdir(parents=True, exist_ok=True)
     flags = [f for f in se.NVCC_FLAGS if f != "-fmad=false"] + ["-fmad=true"]
     flags = [f for f in flags if f not in ("-Xptxas", "-v")]
-    proc = subprocess.Popen([se._nvcc(), *flags, "-o", str(out),
+    proc = subprocess.Popen([build.nvcc(), *flags, "-o", str(out),
                              str(se.SOURCE)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out
@@ -174,6 +205,147 @@ def job_rows(job):
         job.bw)
 
 
+#: kernel-vs-plain tolerances on the card, |kernel - plain| <= atol + rtol
+#: |plain|, by (kernel, dtype[, schedule]):
+#: - fp32 matmul: sums of up to 1024 products of N(0, 1) values (partial
+#:   sums up to ~100) run in another order than cuBLAS's, a few 1e-5 apart;
+#: - bf16 AF matmul, attention and scan: both versions compute in fp32 from
+#:   the same bf16 inputs and round the output once, so an fp32 difference
+#:   in the last bits moves the output by at most one bf16 step, 2^-7
+#:   relative (atol for outputs near zero);
+#: - bf16 PF matmul: each of the K / bk partial sums and each addition
+#:   rounds to bf16 (the schedule's point); where the kernel's fp32 partial
+#:   and cuBLAS's straddle a rounding boundary they differ by one bf16 step
+#:   of the partial or the running sum (up to 0.5 at |x| >= 64), and the
+#:   difference carries through later roundings;
+#: - fp32 attention and scan: the tolerances of tests/test_kernels.py
+#:   (2e-3, 1e-3); sums over up to 4096 keys or 16 states in another order.
+TOLERANCES = {
+    ("cim_matmul", "float32"): (1e-3, 1e-4),
+    ("cim_matmul", "bfloat16", "AF"): (1e-3, 2 ** -7),
+    ("cim_matmul", "bfloat16", "PF"): (1.0, 2 ** -6),
+    ("flash_attention", "float32"): (2e-3, 0.0),
+    ("flash_attention", "bfloat16"): (1e-3, 2 ** -7),
+    ("selective_scan", "float32"): (1e-3, 0.0),
+    ("selective_scan", "bfloat16"): (1e-3, 2 ** -7),
+}
+
+
+def tolerance(kernel: str, dtype_name: str, kwargs: dict) -> tuple:
+    key = (kernel, dtype_name, kwargs.get("tiling", "AF"))
+    return TOLERANCES.get(key) or TOLERANCES[(kernel, dtype_name)]
+
+
+def dtype_of(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def check_close(label: str, got, want, atol: float, rtol: float) -> float:
+    """Max |got - want| over a tensor or a tuple of them; fails on a shape,
+    dtype, non-finite value or tolerance breach."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{label}: kernel {tuple(g.shape)} {g.dtype} vs plain "
+                 f"{tuple(w.shape)} {w.dtype}")
+        g32, w32 = g.float(), w.float()
+        if not bool(torch.isfinite(g32).all()):
+            fail(f"{label}: kernel output is not finite")
+        diff = (g32 - w32).abs()
+        over = float((diff - (atol + rtol * w32.abs())).max()) \
+            if diff.numel() else 0.0
+        err = float(diff.max()) if diff.numel() else 0.0
+        if over > 0:
+            fail(f"{label}: max |kernel - plain| {err:.3e} breaks atol "
+                 f"{atol} rtol {rtol}")
+        worst = max(worst, err)
+    return worst
+
+
+def plain_of(ref, kernel: str, args: tuple, kwargs: dict):
+    """The plain PyTorch version of one wrapper call, on the same inputs."""
+    if kernel == "cim_matmul":
+        return ref.matmul_ref(*args, tiling=kwargs.get("tiling", "AF"),
+                              bk=kwargs.get("bk", 128))
+    if kernel == "flash_attention":
+        return ref.attention_ref(*args, causal=kwargs.get("causal", True))
+    return ref.selective_scan_ref(*args)
+
+
+def library_of(torch, kernel: str, args: tuple, kwargs: dict):
+    """One PyTorch call computing the same function, where there is one
+    (a yardstick only: the port never calls it), else None."""
+    if kernel == "cim_matmul" and kwargs.get("tiling", "AF") == "AF":
+        return lambda: torch.matmul(*args)
+    if kernel == "flash_attention":
+        import torch.nn.functional as F
+        # [1, BH, T, d] views: the layout SDPA's fused backends take
+        q, k, v = (x.unsqueeze(0) for x in args)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kwargs.get("causal", True))
+    return None
+
+
+def kernel_bound_ms(kernel: str, args: tuple, kwargs: dict) -> tuple:
+    """Least time on an H100 for one call: the larger of its bytes (each
+    input read once, each output written once) over HBM and its
+    operations over the peak for their type -- products of bf16 inputs on
+    the tensor cores, everything else at the fp32 rate."""
+    from repro_torch.obs import profile
+    flops, nbytes = profile.work_counts(kernel, args, kwargs)
+    dt = dtype_of(args[0])
+    if kernel == "cim_matmul":
+        t_ops = flops / PRODUCT_PEAK[dt]
+    elif kernel == "flash_attention":
+        q, k = args[:2]
+        pairs = profile.attention_pairs(q.shape[0], q.shape[1], k.shape[1],
+                                        kwargs.get("causal", True))
+        products = pairs * 4 * q.shape[2]
+        t_ops = products / PRODUCT_PEAK[dt] + \
+            (flops - products) / FP_PEAK["float32"]
+    else:
+        t_ops = flops / FP_PEAK["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else \
+        (t_bytes * 1e3, "bytes")
+
+
+def timed_ms(torch, fn) -> float:
+    """CUDA-event time of ``fn``, repeated for about 0.2 s (2 to 50
+    calls) after one warm-up call."""
+    one = cuda_time_ms(torch, fn, reps=1, warmup=1)
+    return cuda_time_ms(torch, fn, reps=max(2, min(50, int(200 / max(one,
+                                                                   1e-3)))),
+                        warmup=0)
+
+
+def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
+    """One wrapper call on the card against its plain version: error, the
+    kernel's, plain version's and library call's times, and the bound."""
+    got = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = plain_of(ref, kernel, args, kwargs)
+    atol, rtol = tolerance(kernel, dtype_of(args[0]), kwargs)
+    err = check_close(f"{kernel} {label}", got, want, atol, rtol)
+    del got, want
+    ms = timed_ms(torch, lambda: fn(*args, **kwargs))
+    plain_ms = timed_ms(torch, lambda: plain_of(ref, kernel, args, kwargs))
+    lib = library_of(torch, kernel, args, kwargs)
+    library_ms = timed_ms(torch, lib) if lib is not None else None
+    b_ms, b_by = kernel_bound_ms(kernel, args, kwargs)
+    print(f"[kernels] {kernel} {label}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library "
+          + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+          + f", bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound; "
+          f"max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol}); "
+          f"{card}", flush=True)
+    return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
 def main() -> None:
     import torch
 
@@ -185,7 +357,10 @@ def main() -> None:
         from repro_torch.core import cost_model
         from repro_torch.core.pruning import (DesignSpace, candidates_with_bw,
                                               enumerate_space, prune_space)
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import build, ops, ref
+        from repro_torch.kernels import cim_matmul as cm_k
+        from repro_torch.kernels import flash_attention as fa_k
+        from repro_torch.kernels import selective_scan as ss_k
         from repro_torch.kernels import strategy_eval as se
     except ImportError as e:
         fail(f"the port is not importable from {ROOT / 'src'}: {e}")
@@ -196,9 +371,18 @@ def main() -> None:
           f"{torch.version.cuda}; cards {torch.cuda.device_count()}")
     print(card)
 
+    # the port keeps fp32 products in true fp32; so do the plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    variant_proc, variant_lib = start_fmad_variant(se)
+    variant_proc, variant_lib = start_fmad_variant(se, build)
+    # slice 2's libraries build meanwhile, one nvcc each (read in phase 7)
+    new_libs = [cm_k, fa_k, ss_k]
+    pool = concurrent.futures.ThreadPoolExecutor(len(new_libs))
+    new_builds = [pool.submit(build.build, m.SOURCE, m.NVCC_FLAGS)
+                  for m in new_libs]
     se.build()
     lib_s = time.perf_counter() - t0
     variant_out, _ = variant_proc.communicate()
@@ -462,16 +646,230 @@ def main() -> None:
     print(f"[sa] {sa.summary()} in {sa_s:.3f} s, {sa_launches} launches; "
           f"energy {ratio:.5f}x exhaustive; {card}")
 
+    # ---- 7. build slice 2's kernels -------------------------------------
+    for m, fut in zip(new_libs, new_builds):
+        lib = fut.result()
+        print(f"[build] {lib.name} (started in phase 2): "
+              f"{ptxas_summary(build.ptxas_report(m.SOURCE, m.NVCC_FLAGS))}; "
+              f"full report in "
+              f"{lib.name}.ptxas.txt")
+    pool.shutdown()
+
+    # ---- 8. kernels against their plain versions -------------------------
+    from repro_torch.obs import profile as obs_profile
+    rng = np.random.default_rng(0)
+
+    def on_card(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x, np.float32)).to(dev).to(dtype)
+
+    # the shapes and dtypes of tests/test_kernels.py, checked only
+    n_checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for tiling in ("AF", "PF"):
+            for m, k, n in ((64, 64, 64), (200, 300, 250), (128, 128, 128),
+                            (1, 700, 130), (257, 129, 255)):
+                a = on_card(rng.standard_normal((m, k)), dtype)
+                b = on_card(rng.standard_normal((k, n)), dtype)
+                kw = {"tiling": tiling}
+                check_close(f"cim_matmul {tiling} {(m, k, n)} {dtype}",
+                            ops.cim_matmul(a, b, **kw),
+                            plain_of(ref, "cim_matmul", (a, b), kw),
+                            *tolerance("cim_matmul", dtype_of(a), kw))
+                n_checked += 1
+    for dtype, causal, (bh, t, s_len, d) in (
+            [(torch.float32, c, sh) for c in (False, True)
+             for sh in ((2, 128, 128, 64), (1, 200, 300, 64),
+                        (3, 129, 257, 128))]
+            + [(torch.bfloat16, True, (2, 256, 256, 64))]):
+        q, k, v = (on_card(rng.standard_normal((bh, ln, d)), dtype)
+                   for ln in (t, s_len, s_len))
+        kw = {"causal": causal}
+        check_close(f"flash_attention {(bh, t, s_len, d)} causal={causal} "
+                    f"{dtype}", ops.flash_attention(q, k, v, **kw),
+                    plain_of(ref, "flash_attention", (q, k, v), kw),
+                    *tolerance("flash_attention", dtype_of(q), kw))
+        n_checked += 1
+    for dtype, (b_, t, i, s_st) in ([(torch.float32, sh) for sh in (
+            (1, 64, 32, 8), (2, 100, 48, 16), (1, 33, 17, 4))]
+            + [(torch.bfloat16, (1, 64, 32, 8))]):
+        args = (on_card(rng.standard_normal((b_, t, i)), dtype),
+                on_card(np.abs(rng.standard_normal((b_, t, i))) * 0.1, dtype),
+                on_card(rng.standard_normal((b_, t, s_st)), dtype),
+                on_card(rng.standard_normal((b_, t, s_st)), dtype),
+                on_card(-np.abs(rng.standard_normal((i, s_st)))),
+                on_card(rng.standard_normal((b_, i, s_st))))
+        kw = {"ct": 16, "ci": 16}
+        check_close(f"selective_scan {(b_, t, i, s_st)} {dtype}",
+                    ops.selective_scan(*args, **kw),
+                    plain_of(ref, "selective_scan", args, kw),
+                    *tolerance("selective_scan", dtype_of(args[0]), kw))
+        n_checked += 1
+    a = on_card(rng.standard_normal((128, 2048)), torch.bfloat16)
+    b = on_card(rng.standard_normal((2048, 128)), torch.bfloat16)
+    exact = ref.matmul_ref(a, b, out_dtype=torch.float32)
+    psum_err = {t: float((ops.cim_matmul(a, b, tiling=t).float() - exact)
+                         .abs().mean()) for t in ("AF", "PF")}
+    if psum_err["AF"] > psum_err["PF"] + 1e-6:
+        fail(f"bf16 AF error {psum_err['AF']} above PF's {psum_err['PF']}")
+    print(f"[kernels] {n_checked} test-shape cases within tolerance; bf16 "
+          f"128x2048x128 mean |err| AF {psum_err['AF']:.5f} <= PF "
+          f"{psum_err['PF']:.5f}")
+
+    # timed: the calibration microbench's own cases (the main path's
+    # shapes), then full width
+    new_cases: dict[str, list[dict]] = {name: [] for name in NEW_KERNELS}
+    for kernel, tiling, fn, args, kwargs in obs_profile._microbench_cases(
+            tuple(NEW_KERNELS), np.random.default_rng(0), dev):
+        new_cases[kernel].append(measure_case(
+            torch, ref, kernel, fn, args, kwargs,
+            f"{fn.__bucket_fn__(*args, **kwargs)} {tiling} float32", card))
+    full: list[tuple] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        a = on_card(rng.standard_normal((512, 1024)), dtype)
+        b = on_card(rng.standard_normal((1024, 4096)), dtype)
+        for tiling in ("AF", "PF"):
+            full.append(("cim_matmul", ops.cim_matmul, (a, b),
+                         {"tiling": tiling},
+                         f"bert-large FFN 512x1024x4096 {tiling}"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (bh, t, d, causal) in (("bert-large", (16, 512, 64, False)),
+                                         ("yi-6b prefill",
+                                          (32, 4096, 128, True))):
+            qkv = tuple(on_card(rng.standard_normal((bh, t, d)), dtype)
+                        for _ in range(3))
+            full.append(("flash_attention", ops.flash_attention, qkv,
+                         {"causal": causal},
+                         f"{name} {bh}x{t}x{t}x{d} causal={causal}"))
+    for dtype in (torch.float32, torch.bfloat16):
+        b_, t, i, s_st = 1, 2048, 8192, 16
+        args = (on_card(rng.standard_normal((b_, t, i)), dtype),
+                on_card(np.abs(rng.standard_normal((b_, t, i))) * 0.1, dtype),
+                on_card(rng.standard_normal((b_, t, s_st)), dtype),
+                on_card(rng.standard_normal((b_, t, s_st)), dtype),
+                on_card(-np.abs(rng.standard_normal((i, s_st)))),
+                torch.zeros((b_, i, s_st), device=dev))
+        full.append(("selective_scan", ops.selective_scan, args,
+                     {"ct": 128, "ci": 64},
+                     f"falcon-mamba-7b {b_}x{t}x{i}x{s_st} ct128xci64"))
+    for kernel, fn, args, kwargs, label in full:
+        new_cases[kernel].append(measure_case(
+            torch, ref, kernel, fn, args, kwargs,
+            f"{label} {dtype_of(args[0])}", card))
+        del args
+    del full
+    torch.cuda.empty_cache()
+
+    # ---- 9. calibrate: measure -> fit -> artifact -> calibrated job ------
+    from repro_torch.core import calibration as cal
+    artifact = ROOT / CALIBRATION_ARTIFACT
+    artifact.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.service", "calibrate", "--json",
+         "-o", str(artifact)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if proc.returncode != 0:
+        fail(f"calibrate exited {proc.returncode}:\n{proc.stderr}")
+    cli = json.loads(proc.stdout)
+    print(f"[calibrate] python -m repro_torch.service calibrate: "
+          f"{cli['records']} records in {time.perf_counter() - t0:.2f} s; "
+          f"report {json.dumps(cli['report'])}")
+
+    # the same path in-process: the main path's launch counts
+    for w in ops.KERNEL_WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    records = obs_profile.run_microbench()
+    report = cal.fit_report(records)
+    fitted = cal.fit_corrections(records)
+    cal.save_calibration(str(artifact.with_name("calibration-inprocess.json")),
+                         fitted, records=records, report=report)
+    torch.cuda.synchronize()
+    cal_launches = {k: w.launches for k, w in ops.KERNEL_WRAPPERS.items()}
+    if not all(cal_launches.values()):
+        fail(f"the calibration path launched no kernel for some wrapper: "
+             f"{cal_launches}")
+    pinned_cf, payload = cal.load_calibration(str(artifact))
+    label = lambda rs: [(r["kernel"], r["bucket"], r["tiling"], r["flops"],
+                         r["bytes"], r["seed"]) for r in rs]
+    if label(payload["measurements"]) != label(records):
+        fail("the CLI's records and the in-process records differ in labels "
+             "or work counts")
+    if cal.fit_corrections(payload["measurements"]) != pinned_cf:
+        fail("refitting the CLI's records does not give its factors")
+    print(f"[calibrate] in-process: launches {json.dumps(cal_launches)}; "
+          f"factors {json.dumps(fitted.as_dict())}; held-out improvement "
+          f"{report['improvement']:.4g}; CLI factors "
+          f"{json.dumps(pinned_cf.as_dict())} (refit equal); {card}")
+    for row in obs_profile.summary(records):
+        print(f"[calibrate] {row['kernel']} {row['bucket']}: "
+              f"{row['us_per_call']:.1f} us/call wall, roofline share "
+              f"{row['roofline_utilization']:.3e}")
+
+    os.environ[cal.CALIBRATION_ENV] = str(artifact)
+    cal.reset_calibration_state()
+    cm = port_core.default_cost_model()
+    if not cm.calibrated or cm.version != cal.calibration_version(pinned_cf):
+        fail(f"the pinned artifact did not calibrate the cost model: {cm}")
+    macro = port_core.get_macro("vanilla-dcim")
+    ops.job_objective.launches = 0
+    ops.strategy_eval.launches = 0
+    torch.cuda.synchronize()
+    calibrated = port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                      method="exhaustive", tech=cm.tech)
+    torch.cuda.synchronize()
+    explore_launches = ops.job_objective.launches + ops.strategy_eval.launches
+    if explore_launches == 0:
+        fail("the calibrated co_explore launched no strategy_eval kernel")
+    plain_cal = port_core.co_explore(
+        macro, wl, FIG7_BUDGET_MM2, method="exhaustive", tech=cm.tech,
+        engine=port_core.ExplorationEngine(device="cuda",
+                                           evaluator=ref.job_objective_ref))
+    if calibrated.config != plain_cal.config or \
+            calibrated.per_op_strategy != plain_cal.per_op_strategy:
+        fail(f"calibrated winner differs from the plain route's: "
+             f"{calibrated.config} vs {plain_cal.config}")
+    analytic = port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                    method="exhaustive")
+    key = lambda tech: port_core.job_key(port_core.ExploreJob(
+        macro, wl, FIG7_BUDGET_MM2, tech=tech), "exhaustive")
+    if key(cm.tech) == key(port_core.DEFAULT_TECH):
+        fail("the calibrated job shares the analytic job's key")
+    for m in (calibrated, analytic):
+        if not all(math.isfinite(m.metrics[k]) and m.metrics[k] > 0
+                   for k in ("tops_w", "gops", "area_mm2", "energy_pj")):
+            fail(f"non-finite metrics {m.metrics}")
+    print(f"[calibrate] bert-large exhaustive, 5 mm^2: analytic "
+          f"{analytic.config.as_tuple()} {analytic.metrics['tops_w']:.3f} "
+          f"TOPS/W | calibrated ({cm.version}) "
+          f"{calibrated.config.as_tuple()} "
+          f"{calibrated.metrics['tops_w']:.3f} TOPS/W; strategies analytic "
+          f"{json.dumps(analytic.per_op_strategy)} calibrated "
+          f"{json.dumps(calibrated.per_op_strategy)}; calibrated = plain "
+          f"route; "
+          f"{explore_launches} launches; own job key")
+
     t32 = timing["float32"]
+    new_lines = []
+    for name, (source, replaces) in NEW_KERNELS.items():
+        first = new_cases[name][0]
+        new_lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": cal_launches[name],
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+            "shape": first["label"], "cases": new_cases[name]})
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches + sa_launches,
+        "replaces": REPLACES,
+        "launches": main_launches + sa_launches + explore_launches
+        + cal_launches["strategy_eval"],
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
         "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": None,
         "float64": {k: timing["float64"][k] for k in (
             "ms", "plain_ms", "bound_ms", "max_abs_err")},
-    }]}))
+    }, *new_lines]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

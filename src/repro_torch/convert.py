@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cost_model
-from repro_torch.core.calibration import TechConstants
+from repro_torch.core.calibration import CorrectionFactors, TechConstants
 from repro_torch.core.ir import MatmulOp, Workload
 from repro_torch.core.macro import MacroSpec
 from repro_torch.core.pruning import DesignSpace
@@ -32,6 +32,18 @@ def macro_spec(obj) -> MacroSpec:
 def tech_constants(obj) -> TechConstants:
     """A reference ``TechConstants`` as the port's."""
     return TechConstants(**_fields(obj))
+
+
+def correction_factors(obj) -> CorrectionFactors:
+    """A reference ``CorrectionFactors`` as the port's."""
+    return CorrectionFactors(**_fields(obj))
+
+
+def measurement_records(records) -> list[dict]:
+    """Reference ``MeasurementRecord`` dicts as the port's (the schema is
+    the same: kernel, bucket, tiling, us, flops, bytes, seed)."""
+    keys = ("kernel", "bucket", "tiling", "us", "flops", "bytes", "seed")
+    return [{k: r[k] for k in keys} for r in records]
 
 
 def matmul_op(obj) -> MatmulOp:

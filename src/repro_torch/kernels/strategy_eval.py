@@ -7,35 +7,26 @@ count-weighted totals, the area penalty and the bandwidth rule -- the
 engine's batched ``cost_model.job_objective``.  It replaces the Pallas
 TPU kernel of the reference (``repro/kernels/strategy_eval.py``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, named after a hash of the source and the flags,
-under ``build/repro_torch/`` at the repository root, at first use; it is
-loaded with ``ctypes``.  Nothing here runs when the module is imported.
+The source is compiled and loaded by the shared helper (``build.py``) at
+first use.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from repro_torch.core.cost_model import JobParams
+from repro_torch.kernels import build as _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "strategy_eval.cu"
+SOURCE = _build.CSRC / "strategy_eval.cu"
 #: per-job constants the kernel reads: 11 macro, 12 tech, 8 mask, the
 #: objective code and the area budget (the layout of ``Param`` in the source)
 NPARAM = 33
 #: IEEE division (no fast math) and no FMA contraction keep the kernel's
 #: rounding equal to the plain version's
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
 #: the kernel stages a job's operator rows in default (48 KB) shared memory
 MAX_SHARED_BYTES = 48 * 1024
 
@@ -43,72 +34,29 @@ _SYMBOLS = {torch.float32: "strategy_eval_f32",
             torch.float64: "strategy_eval_f64"}
 
 
-def build_dir() -> Path:
-    """``build/repro_torch`` at the root of the repository holding ``src``."""
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-
-def library_path() -> Path:
+def library_path():
     """Where the library built from the current source and flags lives."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"libstrategy_eval-{digest[:16]}.so"
+    return _build.library_path(SOURCE, NVCC_FLAGS)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked under $CUDA_HOME/bin, /usr/local/cuda/bin and "
-        "PATH); the strategy_eval kernel is built from source at first use")
-
-
-def build() -> Path:
-    """Compile the kernel unless the library for this source exists.
-
-    The compiler's ``-Xptxas -v`` report (registers, spills) is kept beside
-    the library as ``<library>.ptxas.txt``.  A concurrent build is safe:
-    each writes a temporary file and renames it into place.
-    """
-    lib = library_path()
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        Path(str(lib) + ".ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+def build():
+    """Compile the kernel unless the library for this source exists."""
+    return _build.build(SOURCE, NVCC_FLAGS)
 
 
 def ptxas_report() -> str:
     """The compiler's resource report of the built library."""
-    return Path(str(build()) + ".ptxas.txt").read_text()
+    return _build.ptxas_report(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load(SOURCE, NVCC_FLAGS)
     for sym in _SYMBOLS.values():
         fn = getattr(lib, sym)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_double, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.strategy_eval_error_string.argtypes = [ctypes.c_int]
-    lib.strategy_eval_error_string.restype = ctypes.c_char_p
     lib.strategy_eval_nparam.restype = ctypes.c_int
     if lib.strategy_eval_nparam() != NPARAM:
         raise RuntimeError("kernel parameter layout does not match NPARAM")
@@ -129,17 +77,6 @@ def pack_params(job: JobParams) -> torch.Tensor:
     ], dim=1).contiguous()
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def launch(cand: torch.Tensor, ops: torch.Tensor, params: torch.Tensor,
            penalty_scale: float, *, totals: bool = False):
     """One kernel launch on the current CUDA stream.
@@ -158,9 +95,9 @@ def launch(cand: torch.Tensor, ops: torch.Tensor, params: torch.Tensor,
     if cand.dim() != 3 or ops.dim() != 3:
         raise ValueError("cand must be [J, C, 6] and ops [J, P, 5]")
     J, C, P = cand.shape[0], cand.shape[1], ops.shape[1]
-    _check("cand", cand, (J, C, 6), cand.dtype, cand.device)
-    _check("ops", ops, (J, P, 5), cand.dtype, cand.device)
-    _check("params", params, (J, NPARAM), cand.dtype, cand.device)
+    _build.check_tensor("cand", cand, (J, C, 6), cand.dtype, cand.device)
+    _build.check_tensor("ops", ops, (J, P, 5), cand.dtype, cand.device)
+    _build.check_tensor("params", params, (J, NPARAM), cand.dtype, cand.device)
     if J > 65535:
         raise ValueError(f"at most 65535 jobs per launch, got {J}")
     if (NPARAM + 5 * P) * cand.element_size() > MAX_SHARED_BYTES:
@@ -178,8 +115,5 @@ def launch(cand: torch.Tensor, ops: torch.Tensor, params: torch.Tensor,
         err = getattr(lib, _SYMBOLS[cand.dtype])(
             ptr(cand), ptr(ops), ptr(params), ptr(obj), ptr(lat), ptr(en),
             ptr(idx), J, C, P, float(penalty_scale), stream)
-    if err != 0:
-        raise RuntimeError(
-            "strategy_eval kernel launch failed: "
-            f"{lib.strategy_eval_error_string(err).decode()} ({err})")
+    _build.check_launch(lib, "strategy_eval", err)
     return (obj, lat, en, idx) if totals else obj
