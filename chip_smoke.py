@@ -23,14 +23,23 @@ of which fails the run when it fails:
    of the exhaustive bert-large energy of phase 4;
 7. build    -- the ``cim_matmul``, ``flash_attention`` and
    ``selective_scan`` libraries (their nvcc runs start in phase 2, beside
-   the strategy_eval build); print each compiler report;
+   the strategy_eval build); print each library's compiler summary, the
+   registers and spills of every bf16 tensor-core instantiation, and the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
+   (``cuobjdump -sass``); fails if a bf16 instantiation of ``cim_matmul``
+   or ``flash_attention`` has no ``HGMMA``;
 8. kernels  -- each against its plain version on the card, at the shapes
-   of tests/test_kernels.py, at the calibration microbench's shapes and at
-   full width (bert-large's FFN matmul, bert-large and yi-6b attention,
-   the falcon-mamba-7b scan), fp32 and bf16, each with its stated
-   tolerance; timed with CUDA events beside its plain version, its bound
-   and, where one PyTorch call computes the same function, that call
-   (timed as a yardstick only); AF's bf16 error <= PF's;
+   of tests/test_kernels.py, at every bf16 tile set of the tensor-core
+   routes (matmul on a ragged shape that needs TMA padding, AF and PF;
+   attention with T != S ragged, both head widths, causal or not), at the
+   calibration microbench's shapes (fp32, and bf16 for the two
+   tensor-core kernels) and at full width (bert-large's FFN matmul,
+   bert-large and yi-6b attention, the falcon-mamba-7b scan), fp32 and
+   bf16, each with its stated tolerance; timed with CUDA events beside its
+   plain version, its bound and, where one PyTorch call computes the same
+   function, that call (timed as a yardstick only), each also replayed
+   from a CUDA graph (device time without per-call host dispatch); AF's
+   bf16 error <= PF's;
 9. calibrate -- ``python -m repro_torch.service calibrate --json -o
    build/repro_torch/calibration.json`` in a subprocess, then the same
    path in-process (``run_microbench`` -> ``fit_report`` +
@@ -54,6 +63,7 @@ import json
 import math
 import os
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +102,32 @@ NEW_KERNELS = {
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:62"),
 }
+#: the design of each kernel's dtype routes (printed in the kernels line)
+DESIGNS = {
+    "strategy_eval": {
+        "float32": "CUDA cores: thread per (job, candidate), IEEE, -fmad=false",
+        "float64": "CUDA cores: thread per (job, candidate), IEEE, -fmad=false"},
+    "cim_matmul": {
+        "float32": "CUDA cores, true fp32: smem-staged tiles, register tiles",
+        "bfloat16": "tensor cores: wgmma m64nBNk16 from a TMA ring "
+                    "(mbarriers), producer warpgroup + BM/64 consumer "
+                    "warpgroups; PF epilogue staged in shared memory"},
+    "flash_attention": {
+        "float32": "CUDA cores, true fp32: smem-staged q/k/v, warp-per-row "
+                   "softmax",
+        "bfloat16": "tensor cores: wgmma QK^T (smem) and PV (P hi+lo from "
+                    "registers), 2-stage TMA ring, softmax in registers, "
+                    "QK of one key step overlapping PV of the last"},
+    "selective_scan": {
+        "float32": "CUDA cores: thread per (batch, channel), states in "
+                   "registers",
+        "bfloat16": "CUDA cores: thread per (batch, channel), states in "
+                    "registers"},
+}
+#: the bf16 tensor-core instantiations each library must hold (phase 7)
+#: (mangled: the tc:: kernels take no element type, the fp32 ones an ``f``)
+TC_KERNELS = {"cim_matmul": ("af_kernelILi", "pf_kernelILi"),
+              "flash_attention": ("flash_kernelILi",)}
 CALIBRATION_ARTIFACT = "build/repro_torch/calibration.json"
 
 
@@ -148,11 +184,63 @@ def bound_ms(job, cand, dtype_name: str) -> tuple[float, str]:
 
 def ptxas_summary(report: str) -> str:
     """Kernels, register range and spill bytes of a ``-Xptxas -v`` report."""
-    import re
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
     spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", report))
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"{spills} bytes of spill stores and loads")
+
+
+def ptxas_table(report: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function of a ``-Xptxas -v`` report, names shortened to the
+    kernel and its template arguments."""
+    rows, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = short_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
+def short_name(mangled: str) -> str:
+    """``tc::af_kernel<128, 64, 128>`` or ``af_kernel<float, 128, 64,
+    128>`` from a matmul or attention kernel's mangled name (the ``tc::``
+    kernels, the bf16 tensor-core routes, take no element type)."""
+    m = re.search(r"([a-z]+_kernel)I(f?)((?:Li\d+E)+)", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(3))
+    return (("" if m.group(2) else "tc::") + m.group(1) + "<"
+            + ", ".join((["float"] if m.group(2) else []) + args) + ">")
+
+
+def sass_counts(build, lib: Path) -> dict[str, tuple[int, int]]:
+    """(HGMMA, UTMALDG) instruction counts of each kernel function in a
+    library's SASS (``cuobjdump -sass``), by mangled name."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts: dict[str, list[int]] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UTMALDG" in line
+    return {k: (v[0], v[1]) for k, v in counts.items()}
 
 
 def card_line() -> str:
@@ -278,7 +366,10 @@ def plain_of(ref, kernel: str, args: tuple, kwargs: dict):
 def library_of(torch, kernel: str, args: tuple, kwargs: dict):
     """One PyTorch call computing the same function, where there is one
     (a yardstick only: the port never calls it), else None."""
-    if kernel == "cim_matmul" and kwargs.get("tiling", "AF") == "AF":
+    # fp32 PF adds its K blocks' partial sums in fp32: the product, up to
+    # summation order; bf16 PF rounds each partial sum, which no call does
+    if kernel == "cim_matmul" and (kwargs.get("tiling", "AF") == "AF"
+                                   or args[0].dtype == torch.float32):
         return lambda: torch.matmul(*args)
     if kernel == "flash_attention":
         import torch.nn.functional as F
@@ -322,9 +413,33 @@ def timed_ms(torch, fn) -> float:
                         warmup=0)
 
 
+def graph_ms(torch, fn, calls: int = 20):
+    """Device time of one ``fn`` call without its host dispatch: ``calls``
+    calls captured into one CUDA graph, replayed, timed with CUDA events.
+    None where the call cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        ms = timed_ms(torch, graph.replay) / calls
+        del graph
+        return ms
+    except RuntimeError as e:
+        print(f"[kernels] CUDA graph capture failed: {e}", flush=True)
+        torch.cuda.synchronize()
+        return None
+
+
 def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
     """One wrapper call on the card against its plain version: error, the
-    kernel's, plain version's and library call's times, and the bound."""
+    kernel's, plain version's and library call's times (per call, and
+    replayed from a CUDA graph), and the bound."""
     got = fn(*args, **kwargs)
     torch.cuda.synchronize()
     want = plain_of(ref, kernel, args, kwargs)
@@ -335,15 +450,20 @@ def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
     plain_ms = timed_ms(torch, lambda: plain_of(ref, kernel, args, kwargs))
     lib = library_of(torch, kernel, args, kwargs)
     library_ms = timed_ms(torch, lib) if lib is not None else None
+    g_ms = graph_ms(torch, lambda: fn(*args, **kwargs))
+    lib_g_ms = graph_ms(torch, lib) if lib is not None else None
     b_ms, b_by = kernel_bound_ms(kernel, args, kwargs)
+    fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
     print(f"[kernels] {kernel} {label}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library "
-          + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
-          + f", bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound; "
-          f"max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol}); "
+          f"{plain_ms:.4f} ms, library {fmt(library_ms)}, bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound; graph-replayed "
+          f"kernel {fmt(g_ms)}, library {fmt(lib_g_ms)}"
+          + (f", {b_ms / g_ms:.3f} of bound" if g_ms else "")
+          + f"; max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol}); "
           f"{card}", flush=True)
     return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                graph_ms=g_ms, library_graph_ms=lib_g_ms)
 
 
 def main() -> None:
@@ -646,13 +766,34 @@ def main() -> None:
     print(f"[sa] {sa.summary()} in {sa_s:.3f} s, {sa_launches} launches; "
           f"energy {ratio:.5f}x exhaustive; {card}")
 
-    # ---- 7. build slice 2's kernels -------------------------------------
-    for m, fut in zip(new_libs, new_builds):
+    # ---- 7. build slice 2's kernels; the tensor cores in their SASS -------
+    for (name, m), fut in zip(zip(NEW_KERNELS, new_libs), new_builds):
         lib = fut.result()
+        report = build.ptxas_report(m.SOURCE, m.NVCC_FLAGS)
         print(f"[build] {lib.name} (started in phase 2): "
-              f"{ptxas_summary(build.ptxas_report(m.SOURCE, m.NVCC_FLAGS))}; "
-              f"full report in "
+              f"{ptxas_summary(report)}; full report in "
               f"{lib.name}.ptxas.txt")
+        for kname, regs, st, ld in ptxas_table(report):
+            if kname.startswith("tc::"):
+                print(f"[build]   {kname}: {regs} registers, {st} bytes of "
+                      f"spill stores, {ld} of spill loads")
+        counts = sass_counts(build, lib)
+        tc = {k: v for k, v in counts.items()
+              if any(t in k for t in TC_KERNELS.get(name, ()))}
+        print(f"[sass] {lib.name}: HGMMA {sum(v[0] for v in counts.values())}"
+              f", UTMALDG {sum(v[1] for v in counts.values())} over "
+              f"{len(counts)} kernels; bf16 tensor-core instantiations "
+              f"{len(tc)}, each HGMMA/UTMALDG: "
+              + ", ".join(f"{short_name(k)} {h}/{u}"
+                          for k, (h, u) in sorted(tc.items())))
+        want = {"cim_matmul": 16, "flash_attention": 8}.get(name, 0)
+        if len(tc) != want:
+            fail(f"{name}: {len(tc)} bf16 tensor-core kernels in the SASS, "
+                 f"expected {want}")
+        if any(h == 0 for h, _ in tc.values()):
+            fail(f"{name}: a bf16 instantiation has no HGMMA: "
+                 + ", ".join(short_name(k) for k, (h, _) in tc.items()
+                             if h == 0))
     pool.shutdown()
 
     # ---- 8. kernels against their plain versions -------------------------
@@ -704,6 +845,34 @@ def main() -> None:
                     plain_of(ref, "selective_scan", args, kw),
                     *tolerance("selective_scan", dtype_of(args[0]), kw))
         n_checked += 1
+    # every bf16 tile set of the tensor-core routes: a ragged matmul whose K
+    # and N need TMA padding; attention with T != S, both ragged
+    a = on_card(rng.standard_normal((257, 300)), torch.bfloat16)
+    b = on_card(rng.standard_normal((300, 250)), torch.bfloat16)
+    for tiling in ("AF", "PF"):
+        for bm in cm_k.TILES:
+            for bn in cm_k.TILES:
+                for bk in cm_k.TILES:
+                    kw = {"tiling": tiling, "bm": bm, "bn": bn, "bk": bk}
+                    check_close(f"cim_matmul {kw} (257, 300, 250) bf16",
+                                ops.cim_matmul(a, b, **kw),
+                                plain_of(ref, "cim_matmul", (a, b), kw),
+                                *tolerance("cim_matmul", "bfloat16", kw))
+                    n_checked += 1
+    for d in fa_k.HEAD_DIMS:
+        for t, s_len in ((200, 333), (333, 200)):
+            q, k, v = (on_card(rng.standard_normal((2, ln, d)),
+                               torch.bfloat16) for ln in (t, s_len, s_len))
+            for causal in (False, True):
+                for bq in fa_k.TILES:
+                    for bk in fa_k.TILES:
+                        kw = {"causal": causal, "bq": bq, "bk": bk}
+                        check_close(
+                            f"flash_attention {kw} (2, {t}, {s_len}, {d}) "
+                            "bf16", ops.flash_attention(q, k, v, **kw),
+                            plain_of(ref, "flash_attention", (q, k, v), kw),
+                            *tolerance("flash_attention", "bfloat16", kw))
+                        n_checked += 1
     a = on_card(rng.standard_normal((128, 2048)), torch.bfloat16)
     b = on_card(rng.standard_normal((2048, 128)), torch.bfloat16)
     exact = ref.matmul_ref(a, b, out_dtype=torch.float32)
@@ -718,11 +887,18 @@ def main() -> None:
     # timed: the calibration microbench's own cases (the main path's
     # shapes), then full width
     new_cases: dict[str, list[dict]] = {name: [] for name in NEW_KERNELS}
-    for kernel, tiling, fn, args, kwargs in obs_profile._microbench_cases(
-            tuple(NEW_KERNELS), np.random.default_rng(0), dev):
+    micro = obs_profile._microbench_cases(tuple(NEW_KERNELS),
+                                          np.random.default_rng(0), dev)
+    # the same shapes in bf16, for the two kernels with a tensor-core route
+    micro += [(kernel, tiling, fn,
+               tuple(x.to(torch.bfloat16) for x in args), kwargs)
+              for kernel, tiling, fn, args, kwargs in micro
+              if kernel in TC_KERNELS]
+    for kernel, tiling, fn, args, kwargs in micro:
         new_cases[kernel].append(measure_case(
             torch, ref, kernel, fn, args, kwargs,
-            f"{fn.__bucket_fn__(*args, **kwargs)} {tiling} float32", card))
+            f"{fn.__bucket_fn__(*args, **kwargs)} {tiling} "
+            f"{dtype_of(args[0])}", card))
     full: list[tuple] = []
     for dtype in (torch.float32, torch.bfloat16):
         a = on_card(rng.standard_normal((512, 1024)), dtype)
@@ -858,6 +1034,7 @@ def main() -> None:
             "replaces": replaces, "launches": cal_launches[name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
+            "design": DESIGNS[name],
             "shape": first["label"], "cases": new_cases[name]})
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
@@ -867,6 +1044,7 @@ def main() -> None:
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
         "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": None,
+        "design": DESIGNS["strategy_eval"],
         "float64": {k: timing["float64"][k] for k in (
             "ms", "plain_ms", "bound_ms", "max_abs_err")},
     }, *new_lines]}))

@@ -2,8 +2,9 @@
 
 Each kernel source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, named after a
-hash of the source and the flags, under ``build/repro_torch/`` at the
-repository root, at first use; it is loaded with ``ctypes``.  The
+hash of the source, the shared headers and the flags, under
+``build/repro_torch/`` at the repository root, at first use; it is loaded
+with ``ctypes``.  The
 compiler's ``-Xptxas -v`` report (registers, spills) is kept beside the
 library.  Nothing here runs when the module is imported.
 """
@@ -31,10 +32,14 @@ def build_dir() -> Path:
 
 
 def library_path(source: Path, flags: tuple[str, ...]) -> Path:
-    """Where the library built from ``source`` with ``flags`` lives."""
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(flags).encode()).hexdigest()
-    return build_dir() / f"lib{source.stem}-{digest[:16]}.so"
+    """Where the library built from ``source`` with ``flags`` lives: named
+    after a hash of the source, every header (``*.cuh``) beside it and the
+    flags, so that an edit to a shared header rebuilds its users."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return build_dir() / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc() -> str:

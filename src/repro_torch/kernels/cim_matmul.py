@@ -4,9 +4,11 @@ The kernel (``csrc/cim_matmul.cu``) is the paper's AF / PF macro tiling as
 a blocked ``[M, K] @ [K, N]``: AF keeps each output tile's sum in fp32
 registers across K and writes it once; PF keeps an A tile in shared memory
 while it sweeps N tiles and read-modify-writes the output at its dtype
-once per K block.  It replaces the Pallas TPU kernel of the reference
-(``repro/kernels/cim_matmul.py``).  Built and loaded by ``build.py`` at
-first use; nothing here runs when the module is imported.
+once per K block.  bfloat16 runs on the tensor cores (``wgmma``, tiles
+brought by TMA), float32 on the CUDA cores.  It replaces the Pallas TPU
+kernel of the reference (``repro/kernels/cim_matmul.py``).  Built and
+loaded by ``build.py`` at first use; nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ SCHEDULES = {"AF": 0, "PF": 1}
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE, NVCC_FLAGS)
     lib.cim_matmul.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.cim_matmul.restype = ctypes.c_int
     return lib
 
@@ -63,6 +65,27 @@ def pf_tiles_per_block(m: int, n: int, bm: int, bn: int,
     return -(-gn // splits)
 
 
+def tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``a`` [M, K] and ``b`` [K, N] as TMA can read them: row strides of a
+    multiple of 16 bytes and 16-byte-aligned bases.  Returns the operands
+    themselves where they already are, else zero-padded copies whose K and
+    N are rounded up to a multiple of ``16 // itemsize``.  The added zeros
+    add exact zeros to every sum and move no K block boundary (blocks start
+    at multiples of bk from 0), so the product, sliced to [M, N], is
+    unchanged in either schedule."""
+    align = 16 // a.element_size()
+    (m, k), n = a.shape, b.shape[1]
+    kp, np_ = -(-k // align) * align, -(-n // align) * align
+    if (kp, np_) == (k, n) and a.data_ptr() % 16 == 0 and \
+            b.data_ptr() % 16 == 0:
+        return a, b
+    ap = a.new_zeros((m, kp))
+    ap[:, :k] = a
+    bp = b.new_zeros((kp, np_))
+    bp[:k, :n] = b
+    return ap, bp
+
+
 def launch(a: torch.Tensor, b: torch.Tensor, *, tiling: str = "AF",
            bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
            bk: int = DEFAULT_BK) -> torch.Tensor:
@@ -86,10 +109,14 @@ def launch(a: torch.Tensor, b: torch.Tensor, *, tiling: str = "AF",
         return torch.zeros((m, n), dtype=a.dtype, device=a.device)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     tpb = pf_tiles_per_block(m, n, bm, bn, a.device) if tiling == "PF" else 1
+    if a.dtype == torch.bfloat16:
+        a, b = tma_operands(a, b)
+        k = a.shape[1]
     lib = _library()
     with torch.cuda.device(a.device):
         err = lib.cim_matmul(DTYPES[a.dtype], SCHEDULES[tiling], bm, bn, bk,
                              a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             m, n, k, tpb, _build.stream_of(a))
+                             m, n, k, a.shape[1], b.shape[1], tpb,
+                             _build.stream_of(a))
     _build.check_launch(lib, "cim_matmul", err)
     return out

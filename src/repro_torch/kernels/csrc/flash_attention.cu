@@ -3,30 +3,64 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _kernel): q [BH, T, d] against k, v [BH, S, d],
 // scale 1/sqrt(d), float32 or bfloat16 in and out.  The reference's
-// semantics are kept exactly: NEG_INF = -1e30 for masked scores, keys at
-// or beyond S masked, causal masking top-left (key kpos is seen by query
-// qpos when kpos <= qpos, also when T != S), a running max, denominator
-// and fp32 accumulator per query row, out = acc / max(l, 1e-30).
+// semantics are kept: NEG_INF = -1e30 for masked scores, keys at or beyond
+// S masked, causal masking top-left (key kpos is seen by query qpos when
+// kpos <= qpos, also when T != S), a running max, denominator and fp32
+// accumulator per query row, out = acc / max(l, 1e-30).  With causal
+// masking, kv tiles that lie wholly above the diagonal are skipped: every
+// query row has seen key 0 by then, so those tiles would add exact zeros
+// (alpha = exp(0) = 1, p = exp(-1e30 - m) = 0).
 //
 // What bounds it on an H100: operations.  Per (query, key) pair it does
 // 4 d flops of products plus the softmax; at bert-large (T = S = 512,
 // d = 64) that is 66 flops per byte of q, k, v and out, at a yi-6b
-// prefill (4096, d = 128) over 1,000 -- both right of the ridge.  This
-// first version computes in fp32 on the CUDA cores (bf16 is widened on
-// load), so the 67 TFLOP/s fp32 rate is its ceiling.  The design: the
-// block's q tile stays in shared memory for the whole kv loop; each kv
-// tile is staged in shared memory once (K transposed, then V in the same
-// buffer), so global memory sees every k and v row once per q tile; the
-// 256 threads each own a register tile of the scores (phase 1) and of the
-// output accumulator (phase 3), and one warp per row does the softmax
-// update (phase 2) with shuffles.  With causal masking, kv tiles that lie
-// wholly above the diagonal are skipped: every query row has seen key 0
-// by then, so those tiles would add exact zeros (alpha = exp(0) = 1,
-// p = exp(-1e30 - m) = 0).  Tiles of 128 x 128 at d = 128 need 195 KB of
-// shared memory, above the 48 KB default: the launch raises the limit
-// with cudaFuncSetAttribute.
+// prefill (4096, d = 128) over 1,000 -- both right of the ridge.  Each
+// dtype has its own route:
+//
+// bfloat16: the tensor cores (wgmma) fed by TMA.  A block is one producer
+//   warpgroup, whose first thread issues TMA loads through 3-D tensor maps
+//   over [BH, S, d] (rows past S load as zeros and never reach into the next
+//   head), and BQ / 64 consumer warpgroups of 64 query rows each.  The q
+//   tile is loaded once; K and V tiles go through a 2-stage ring guarded by
+//   mbarriers, so the next tile loads while this one is used.  S = Q K^T is
+//   a wgmma with both operands in shared memory (K is already K-major) and
+//   the fp32 scores in registers; scale (in log2 units, for exp2) and masks
+//   are applied on that register fragment, and the running softmax stays
+//   in registers: a row is spread over the 4 threads of a quad, so its max
+//   is two xor-shuffles and its sum is reduced only once, at the end.  P V
+//   is a wgmma with P from registers (the score fragment is already the
+//   A-operand layout) and V read with the transpose bit (V is MN-major);
+//   O is an fp32 register accumulator, rescaled by alpha per step.  The
+//   consumers pipeline the steps: the scores of step u are issued before
+//   P V of step u - 1, and the softmax of step u runs while that P V is on
+//   the tensor cores.  A step is the whole kv tile with one consumer
+//   warpgroup and 64 keys with two, whose threads have only 168 registers
+//   (setmaxnreg did not lift ptxas's allocation above that, PERF.md).
+//   Blocks start with the heaviest q tiles (under causal masking the last
+//   tiles see the most keys), so the light ones fill the tail of the grid.
+//   The reference keeps P in fp32 for P V; one bf16 rounding of P breaks
+//   the stated tolerance (atol 1e-3 + 2^-7 |x| against the plain version)
+//   on rows with few keys or cancelling values, as the CPU rehearsal in
+//   tests/test_torch_attention_rounding.py shows, so P is split into bf16
+//   hi + lo parts and P V is two wgmmas over the same V tile: P's error
+//   drops from 2^-9 to about 2^-17 relative, for 1.5x the product
+//   operations.  Ceiling: the 989 TFLOP/s bf16 tensor-core rate.
+//
+// float32: the first version's design (the port keeps fp32 out of TF32,
+//   and TF32 wgmma takes only K-major operands while V is MN-major).  It
+//   computes on the CUDA cores, so the 67 TFLOP/s fp32 rate is its
+//   ceiling: the block's q tile stays in shared memory for the whole kv
+//   loop; each kv tile is staged in shared memory once (K transposed, then
+//   V in the same buffer), so global memory sees every k and v row once per
+//   q tile; the 256 threads each own a register tile of the scores (phase
+//   1) and of the output accumulator (phase 3), and one warp per row does
+//   the softmax update (phase 2) with shuffles.  Tiles of 128 x 128 at
+//   d = 128 need 195 KB of shared memory, above the 48 KB default: the
+//   launch raises the limit with cudaFuncSetAttribute.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -34,12 +68,8 @@ constexpr int THREADS = 256;          // 16 x 16 threads; 8 warps
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D, int BQ, int BK>
 constexpr size_t smem_floats() {
@@ -229,14 +259,340 @@ int dispatch(int d, int bq, int bk, const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- bfloat16: wgmma + TMA ------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int WG = 128;                      // threads of a warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D, int BQ, int BK>
+struct Tile {
+  static constexpr int NC = BQ / 64;         // consumer warpgroups
+  static constexpr int THREADS = (NC + 1) * WG;  // + the producer warpgroup
+  static constexpr int Q_BYTES = BQ * D * 2;     // D / 64 boxes [BQ x 64]
+  static constexpr int KV_BYTES = BK * D * 2;    // D / 64 boxes [BK x 64]
+  static constexpr int STAGES = 2;
+  // Keys per step of the softmax pipeline.  A consumer thread holds the
+  // scores of one step (KS / 2 fp32) while the previous step's P (KS / 2
+  // packed hi + lo registers) and the output (D / 2 fp32) are in flight in
+  // P V.  With two consumer warpgroups a thread has 168 registers (384
+  // threads), so a 128-key tile is consumed in two 64-key steps there;
+  // one consumer warpgroup (255 registers) takes the whole tile per step.
+  static constexpr int KS = NC == 2 ? 64 : BK;
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 3 * STAGES) * 8;
+};
+
+// the D / 64 boxes of rows r0.. of head bh into dst, one box per 64 columns
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int bh) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load_3d(dst + c * ROWS * 128, map, bar, 64 * c, r0, bh);
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// sc = Q K^T for the 64 rows of warpgroup wg against KS keys whose rows
+// start at ks in a staged K tile of BK rows; issued and committed, not
+// waited for
+template <int D, int BQ, int BK, int KS>
+__device__ __forceinline__ void issue_qk(float (&sc)[KS / 2],
+                                         const uint8_t* q_s, const uint8_t* ks,
+                                         int wg) {
+  hopper::zero(sc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint8_t* qk = q_s + (kk / 4) * BQ * 128 + wg * 64 * 128 + (kk % 4) * 32;
+    const uint8_t* kt = ks + (kk / 4) * BK * 128 + (kk % 4) * 32;
+    hopper::wgmma_ss<0>(sc, hopper::desc_sw128(qk, 16, 1024),
+                        hopper::desc_sw128(kt, 16, 1024));
+  }
+  hopper::wgmma_commit();
+}
+
+// o += (P hi + P lo) V for KS keys whose rows start at vs in a staged V
+// tile of BK rows (MN-major: transpose bit, 64-wide d chunks BK rows
+// apart); issued and committed, not waited for
+template <int D, int BK, int KS>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p_hi)[KS / 16][4],
+                                         const uint32_t (&p_lo)[KS / 16][4],
+                                         const uint8_t* vs) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS / 16; ++kk) {
+    const uint64_t dv = hopper::desc_sw128(vs + kk * 2048, BK * 128, 1024);
+    hopper::wgmma_rs<1>(o, p_hi[kk], dv);
+    hopper::wgmma_rs<1>(o, p_lo[kk], dv);
+  }
+  hopper::wgmma_commit();
+}
+
+// One KS-key step of the running softmax on the score fragment, in place:
+// sc[4 c + 2 i + j] is query q_row + 8 i, key kv0 + 8 c + 2 (lane % 4) + j.
+// Scale (log2 units) and masks, the quad-wide row max, alpha = the old
+// max's weight, sc = exp2(sc - max), and the thread's part of l.
+template <int KS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KS / 2],
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], int kv0,
+                                             int q_row, int S_len, int causal,
+                                             bool masked, float scale,
+                                             int lane) {
+#pragma unroll
+  for (int c = 0; c < KS / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int idx = 4 * c + 2 * i + j;
+        const int kpos = kv0 + 8 * c + 2 * (lane % 4) + j;
+        const bool keep = !masked || (kpos < S_len &&
+                                      (!causal || kpos <= q_row + 8 * i));
+        sc[idx] = keep ? sc[idx] * scale : NEG_INF;
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < KS / 8; ++c)
+      mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * i], sc[4 * c + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[i], mx);
+    alpha[i] = ex2(m_r[i] - m_new);
+    m_r[i] = m_new;
+    l_r[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int idx = 0; idx < KS / 2; ++idx) {
+    const int i = (idx >> 1) & 1;
+    sc[idx] = ex2(sc[idx] - m_r[i]);
+    l_r[i] += sc[idx];
+  }
+}
+
+// P as bf16 hi + lo A fragments: p[kk][r] holds sc[8 kk + 2 r], +1
+template <int KS>
+__device__ __forceinline__ void split_p(const float (&sc)[KS / 2],
+                                        uint32_t (&p_hi)[KS / 16][4],
+                                        uint32_t (&p_lo)[KS / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      p_hi[kk][r] = pack(hi);
+      p_lo[kk][r] = pack(__floats2bfloat162_rn(x0 - __low2float(hi),
+                                               x1 - __high2float(hi)));
+    }
+}
+
+// The consumer warpgroups of one (bh, q tile) block: the softmax pipeline
+// over KS-key steps of the staged kv tiles, then the epilogue.
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void consume(
+    const uint8_t* q_s, const uint8_t* k_s, const uint8_t* v_s,
+    uint64_t* q_full, uint64_t* k_full, uint64_t* v_full, uint64_t* kv_empty,
+    bf16* __restrict__ o, int bh, int q0, int n_kv, int T_len, int S_len,
+    float scale, int causal, int wg) {
+  using T = Tile<D, BQ, BK>;
+  constexpr int S = T::STAGES, KS = T::KS, R = BK / KS;
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % WG) / 32;
+  const int row = wg * 64 + 16 * w + lane / 4;   // and row + 8, in the q tile
+  // steps past S or wholly above the diagonal add exact zeros: skipped
+  // (they lie in the last loaded tile, so every earlier stage is released)
+  int n_steps = min(n_kv * R, (S_len + KS - 1) / KS);
+  if (causal) n_steps = min(n_steps, (q0 + BQ - 1) / KS + 1);
+  // step u: rows (u % R) KS.. of the tile in stage (u / R) % S
+  auto stage = [](int u) { return (u / R) % S; };
+  auto phase = [](int u) { return (u / R / S) & 1; };
+  auto rows = [](int u) { return (u / R) % S * T::KV_BYTES + u % R * KS * 128; };
+  // whether step u needs masks for this warpgroup's rows
+  auto masked = [&](int u) {
+    return (u + 1) * KS > S_len || (causal && (u + 1) * KS - 1 > q0 + wg * 64);
+  };
+  float o_acc[D / 2], sc[KS / 2], m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f}, alpha[2];
+  uint32_t p_hi[KS / 16][4], p_lo[KS / 16][4];
+  hopper::zero(o_acc);
+  hopper::mbar_wait(q_full, 0);
+
+  // Software pipeline: while P V of step u - 1 runs on the tensor cores,
+  // the scores of step u go through the softmax.
+  hopper::mbar_wait(&k_full[0], 0);
+  issue_qk<D, BQ, BK, KS>(sc, q_s, k_s, wg);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  softmax_tile<KS>(sc, m_r, l_r, alpha, 0, q0 + row, S_len, causal,
+                   masked(0), scale, lane);
+  split_p<KS>(sc, p_hi, p_lo);
+  for (int u = 1; u < n_steps; ++u) {
+    hopper::mbar_wait(&k_full[stage(u)], phase(u));
+    issue_qk<D, BQ, BK, KS>(sc, q_s, k_s + rows(u), wg);
+    hopper::mbar_wait(&v_full[stage(u - 1)], phase(u - 1));
+    hopper::fence_regs(o_acc);
+    issue_pv<D, BK, KS>(o_acc, p_hi, p_lo, v_s + rows(u - 1));
+    hopper::wgmma_wait<1>();                    // the scores are in
+    hopper::fence_regs(sc);
+    softmax_tile<KS>(sc, m_r, l_r, alpha, u * KS, q0 + row, S_len, causal,
+                     masked(u), scale, lane);
+    hopper::wgmma_wait<0>();                    // P V of step u - 1 is done
+    hopper::fence_regs(o_acc);
+    if (u % R == 0 && lane == 0) hopper::mbar_arrive(&kv_empty[stage(u - 1)]);
+#pragma unroll
+    for (int idx = 0; idx < D / 2; ++idx) o_acc[idx] *= alpha[(idx >> 1) & 1];
+    split_p<KS>(sc, p_hi, p_lo);
+  }
+  hopper::mbar_wait(&v_full[stage(n_steps - 1)], phase(n_steps - 1));
+  hopper::fence_regs(o_acc);
+  issue_pv<D, BK, KS>(o_acc, p_hi, p_lo, v_s + rows(n_steps - 1));
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o_acc);
+
+  // out = acc / max(l, 1e-30), l summed over the row's quad
+  bf16* ob = o + static_cast<size_t>(bh) * T_len * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = fmaxf(l, 1e-30f);
+    const int q = q0 + row + 8 * i;
+    if (q >= T_len) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<size_t>(q) * D + 8 * c + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o_acc[4 * c + 2 * i] / denom,
+                                o_acc[4 * c + 2 * i + 1] / denom);
+  }
+}
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(Tile<D, BQ, BK>::THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap q_map,
+             const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+             int T_len, int S_len, float scale, int causal) {
+  using T = Tile<D, BQ, BK>;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = hopper::align1024(smem_raw);            // [Q_BYTES]
+  uint8_t* k_s = q_s + T::Q_BYTES;                       // [S][KV_BYTES]
+  uint8_t* v_s = k_s + S * T::KV_BYTES;                  // [S][KV_BYTES]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + S * T::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* kv_empty = v_full + S;
+
+  // heaviest q tiles first (under causal masking the last tiles see the
+  // most keys), every head's before the next lighter tile
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  int n_kv = (S_len + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);   // skip tiles above the diagonal
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], T::NC * 4);   // one arrival per warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == T::NC) {                                 // producer
+    if (threadIdx.x == T::NC * WG) {
+      hopper::mbar_expect_tx(q_full, T::Q_BYTES);
+      load_rows<D, BQ>(q_s, &q_map, q_full, q0, bh);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % S;
+        hopper::mbar_wait(&kv_empty[s], ((t / S) & 1) ^ 1);
+        hopper::mbar_expect_tx(&k_full[s], T::KV_BYTES);
+        load_rows<D, BK>(k_s + s * T::KV_BYTES, &k_map, &k_full[s], t * BK, bh);
+        hopper::mbar_expect_tx(&v_full[s], T::KV_BYTES);
+        load_rows<D, BK>(v_s + s * T::KV_BYTES, &v_map, &v_full[s], t * BK, bh);
+      }
+    }
+  } else {
+    consume<D, BQ, BK>(q_s, k_s, v_s, q_full, k_full, v_full, kv_empty, o,
+                       bh, q0, n_kv, T_len, S_len, scale, causal, wg);
+  }
+}
+
+template <int D, int BQ, int BK>
+int launch(const void* q, const void* k, const void* v, void* o, int BH,
+           int T_len, int S_len, float scale, int causal, cudaStream_t stream) {
+  using T = Tile<D, BQ, BK>;
+  CUtensorMap q_map, k_map, v_map;
+  const uint64_t strides[2] = {static_cast<uint64_t>(D) * 2,
+                               static_cast<uint64_t>(T_len) * D * 2};
+  const uint64_t kv_strides[2] = {static_cast<uint64_t>(D) * 2,
+                                  static_cast<uint64_t>(S_len) * D * 2};
+  const uint64_t q_dims[3] = {D, static_cast<uint64_t>(T_len),
+                              static_cast<uint64_t>(BH)};
+  const uint64_t kv_dims[3] = {D, static_cast<uint64_t>(S_len),
+                               static_cast<uint64_t>(BH)};
+  const uint32_t q_box[3] = {64, BQ, 1}, kv_box[3] = {64, BK, 1};
+  if (!hopper::bf16_map(&q_map, q, 3, q_dims, strides, q_box) ||
+      !hopper::bf16_map(&k_map, k, 3, kv_dims, kv_strides, kv_box) ||
+      !hopper::bf16_map(&v_map, v, 3, kv_dims, kv_strides, kv_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_kernel<D, BQ, BK>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(T::SMEM));
+  const dim3 grid(BH, (T_len + BQ - 1) / BQ);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(q_map, k_map, v_map,
+                                              static_cast<bf16*>(o), T_len,
+                                              S_len, scale * LOG2E, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int d, int bq, int bk, const void* q, const void* k,
+             const void* v, void* o, int BH, int T_len, int S_len, float scale,
+             int causal, cudaStream_t stream) {
+#define FA_TC_TILE(D_, BQ_, BK_)                                              \
+  if (d == D_ && bq == BQ_ && bk == BK_)                                      \
+    return launch<D_, BQ_, BK_>(q, k, v, o, BH, T_len, S_len, scale, causal,  \
+                                stream);
+  FA_TC_TILE(64, 128, 128)
+  FA_TC_TILE(64, 128, 64)
+  FA_TC_TILE(64, 64, 128)
+  FA_TC_TILE(64, 64, 64)
+  FA_TC_TILE(128, 128, 128)
+  FA_TC_TILE(128, 128, 64)
+  FA_TC_TILE(128, 64, 128)
+  FA_TC_TILE(128, 64, 64)
+#undef FA_TC_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
 // q [BH, T, d], k, v [BH, S, d] -> o [BH, T, d], all of one dtype (0:
-// float32, 1: bfloat16), contiguous; d in {64, 128}, bq and bk in
-// {64, 128}.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// float32, 1: bfloat16, with 16-byte-aligned bases for TMA), contiguous;
+// d in {64, 128}, bq and bk in {64, 128}.  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 int flash_attention(int dtype, int d, int bq, int bk, const void* q,
                     const void* k, const void* v, void* o, int BH, int T_len,
                     int S_len, float scale, int causal, void* stream) {
@@ -245,9 +601,12 @@ int flash_attention(int dtype, int d, int bq, int bk, const void* q,
   if (dtype == 0)
     return dispatch<float>(d, bq, bk, q, k, v, o, BH, T_len, S_len, scale,
                            causal, s);
+  if (dtype == 1 && S_len == 0)   // no keys: acc / max(l, 1e-30) = 0
+    return static_cast<int>(cudaMemsetAsync(
+        o, 0, static_cast<size_t>(BH) * T_len * d * sizeof(__nv_bfloat16), s));
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(d, bq, bk, q, k, v, o, BH, T_len, S_len,
-                                   scale, causal, s);
+    return tc::dispatch(d, bq, bk, q, k, v, o, BH, T_len, S_len, scale,
+                        causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

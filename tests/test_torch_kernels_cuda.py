@@ -6,7 +6,11 @@ and strategy sets; fp32 at rtol 1e-5, fp64 at rtol 1e-12 with identical
 argmins.  cim_matmul, flash_attention and selective_scan at the shapes and
 dtypes of tests/test_kernels.py, at its tolerances (matmul 1e-4 / 0.2,
 attention 2e-3 / 3e-2, scan 1e-3 / 0.15), and the calibration microbench
-on the card launching all four kernels.
+on the card launching all four kernels.  The bf16 tensor-core routes of
+cim_matmul and flash_attention at every tile set (a ragged matmul that
+needs TMA padding, AF and PF; attention with T != S ragged, both head
+widths, causal or not) at chip_smoke.py's bf16 tolerances, misaligned
+operand bases, and HGMMA / UTMALDG in every bf16 instantiation's SASS.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
@@ -166,3 +170,107 @@ def test_microbench_launches_every_kernel(card):
     assert {r["kernel"] for r in records} == set(ops.KERNEL_WRAPPERS)
     assert all(w.launches > before[k]
                for k, w in ops.KERNEL_WRAPPERS.items())
+
+
+# ---- the bf16 tensor-core routes (wgmma + TMA): every tile set ------------
+
+BF16_TOL = {"AF": (1e-3, 2 ** -7), "PF": (1.0, 2 ** -6)}   # chip_smoke.py's
+
+
+def _within(got, want, atol, rtol):
+    g, w = got.float(), want.float()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(g).all())
+    assert float(((g - w).abs() - (atol + rtol * w.abs())).max()) <= 0
+
+
+@pytest.mark.parametrize("tiling", ["AF", "PF"])
+@pytest.mark.parametrize("tiles", [(bm, bn, bk) for bm in (64, 128)
+                                   for bn in (64, 128) for bk in (64, 128)],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_cim_matmul_bf16_every_tile_set(card, tiling, tiles):
+    """A ragged shape whose K and N need TMA padding (300 and 250 are not
+    multiples of 8)."""
+    rng = np.random.default_rng(6)
+    a = _on(card, rng.standard_normal((257, 300)), torch.bfloat16)
+    b = _on(card, rng.standard_normal((300, 250)), torch.bfloat16)
+    bm, bn, bk = tiles
+    got = ops.cim_matmul(a, b, tiling=tiling, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    _within(got, ref.matmul_ref(a, b, tiling=tiling, bk=bk),
+            *BF16_TOL[tiling])
+
+
+@pytest.mark.parametrize("tiling", ["AF", "PF"])
+def test_cim_matmul_bf16_misaligned_base(card, tiling):
+    """A contiguous operand whose base is 2 bytes off a 16-byte boundary
+    goes through an aligned copy, not around the kernel."""
+    rng = np.random.default_rng(8)
+    buf = _on(card, rng.standard_normal(1 + 128 * 192), torch.bfloat16)
+    a = buf[1:].view(128, 192)
+    b = _on(card, rng.standard_normal((192, 136)), torch.bfloat16)
+    before = ops.cim_matmul.launches
+    got = ops.cim_matmul(a, b, tiling=tiling)
+    torch.cuda.synchronize()
+    assert ops.cim_matmul.launches == before + 1
+    _within(got, ref.matmul_ref(a, b, tiling=tiling), *BF16_TOL[tiling])
+
+
+def test_flash_attention_bf16_misaligned_base(card):
+    """A contiguous q whose base is 2 bytes off a 16-byte boundary goes
+    through an aligned copy, not around the kernel."""
+    rng = np.random.default_rng(10)
+    buf = _on(card, rng.standard_normal(1 + 128 * 64), torch.bfloat16)
+    q = buf[1:].view(1, 128, 64)
+    k, v = (_on(card, rng.standard_normal((1, 96, 64)), torch.bfloat16)
+            for _ in range(2))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    _within(got, ref.attention_ref(q, k, v, causal=True), 1e-3, 2 ** -7)
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (64, 128), (128, 64),
+                                   (128, 128)],
+                         ids=lambda t: f"bq{t[0]}xbk{t[1]}")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 200, 333), (2, 333, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_every_tile_set(card, d, shape, causal, tiles):
+    """T != S, both ragged; chip_smoke.py's bf16 tolerance."""
+    bh, t, s = shape
+    rng = np.random.default_rng(9)
+    q, k, v = (_on(card, rng.standard_normal((bh, n, d)), torch.bfloat16)
+               for n in (t, s, s))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, bq=tiles[0],
+                              bk=tiles[1])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    _within(got, ref.attention_ref(q, k, v, causal=causal), 1e-3, 2 ** -7)
+
+
+def test_tensor_core_kernels_have_hgmma_in_sass(card):
+    """Every bf16 instantiation of cim_matmul and flash_attention issues
+    wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cim_matmul as cm
+    from repro_torch.kernels import flash_attention as fa
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    for mod, names, want in ((cm, ("af_kernelILi", "pf_kernelILi"), 16),
+                             (fa, ("flash_kernelILi",), 8)):
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.build(mod.SOURCE, mod.NVCC_FLAGS))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        tc = [f for f in funcs if any(n in f.split()[0] for n in names)]
+        assert len(tc) == want
+        for f in tc:
+            assert "HGMMA" in f and "UTMALDG" in f, f.split()[0]
