@@ -49,13 +49,24 @@ of which fails the run when it fails:
    ``CIM_TUNER_CALIBRATION`` drives ``default_cost_model()`` and a
    calibrated bert-large exhaustive ``co_explore`` on the card, which
    must equal the same job with the plain versions and carry its own
-   job key.
+   job key;
+10. strategy_eval per shape -- the paths of phases 4, 6 and 9 driven once
+   more, untimed, with every kernel launch recorded by shape (and the
+   first inputs of each); each path's recorded launches must equal its
+   launch counts and those of its timed run. Each shape is replayed in
+   fp32 and fp64: per call and from a CUDA graph, beside its bound,
+   launches, registers, spills and ``MUFU.RCP`` count; and the sum of
+   launches x graph time.
+
+Phase 7 also counts ``MUFU.RCP`` (IEEE division) in every kernel's SASS;
+phase 8 prints each scan launch's blocks, threads and warps per SM.
 
 The second-to-last line is a JSON record of the kernels (launches, error,
 times, bound); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import cProfile
 import concurrent.futures
 import ctypes
@@ -105,8 +116,14 @@ NEW_KERNELS = {
 #: the design of each kernel's dtype routes (printed in the kernels line)
 DESIGNS = {
     "strategy_eval": {
-        "float32": "CUDA cores: thread per (job, candidate), IEEE, -fmad=false",
-        "float64": "CUDA cores: thread per (job, candidate), IEEE, -fmad=false"},
+        "float32": "CUDA cores: two lanes per (job, candidate), one REV half "
+                   "each, shuffle-combined first-index argmin; per-job and "
+                   "per-(candidate, operator, REV) terms computed once; "
+                   "IEEE, -fmad=false",
+        "float64": "CUDA cores: two lanes per (job, candidate), one REV half "
+                   "each, shuffle-combined first-index argmin; per-job and "
+                   "per-(candidate, operator, REV) terms computed once; "
+                   "IEEE, -fmad=false"},
     "cim_matmul": {
         "float32": "CUDA cores, true fp32: smem-staged tiles, register tiles",
         "bfloat16": "tensor cores: wgmma m64nBNk16 from a TMA ring "
@@ -119,16 +136,21 @@ DESIGNS = {
                     "registers), 2-stage TMA ring, softmax in registers, "
                     "QK of one key step overlapping PV of the last"},
     "selective_scan": {
-        "float32": "CUDA cores: thread per (batch, channel), states in "
-                   "registers",
-        "bfloat16": "CUDA cores: thread per (batch, channel), states in "
-                    "registers"},
+        "float32": "CUDA cores: a lane per state, S lanes per (batch, "
+                   "channel), y by shuffle tree; dt/xi/B/C chunks "
+                   "double-buffered in shared memory by cp.async",
+        "bfloat16": "CUDA cores: a lane per state, S lanes per (batch, "
+                    "channel), y by shuffle tree; dt/xi/B/C chunks "
+                    "double-buffered in shared memory by cp.async"},
 }
 #: the bf16 tensor-core instantiations each library must hold (phase 7)
 #: (mangled: the tc:: kernels take no element type, the fp32 ones an ``f``)
 TC_KERNELS = {"cim_matmul": ("af_kernelILi", "pf_kernelILi"),
               "flash_attention": ("flash_kernelILi",)}
 CALIBRATION_ARTIFACT = "build/repro_torch/calibration.json"
+#: the falcon-mamba-7b scan at full width (B, T, I, S) and its tiling
+FALCON_SCAN = (1, 2048, 8192, 16)
+FALCON_TILING = {"ct": 128, "ci": 64}
 
 
 def fail(msg: str) -> None:
@@ -158,28 +180,124 @@ def cuda_time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def needed_flops(job, n_cands: int) -> float:
+#: where the strategy mask sits in a packed parameter row (the kernel's
+#: ``Param`` layout: 11 macro and 12 tech constants, then the mask)
+P_ALLOWED = 23
+
+
+def needed_flops(ops_t, params, n_cands: int) -> float:
     """Operations the cost model needs on a [J, n_cands] grid: real
     operators only (count > 0) and only the strategies each job allows
     (the per-strategy counts of ``repro_torch.obs.profile``)."""
     from repro_torch.obs.profile import strategy_eval_work
-    counts = job.ops[..., 3].cpu().numpy()
-    allowed = job.allowed.cpu().numpy() > 0
+    counts = ops_t[..., 3].cpu().numpy()
+    allowed = params[:, P_ALLOWED:P_ALLOWED + 8].cpu().numpy() > 0
     return sum(strategy_eval_work(n_cands, int((counts[j] > 0).sum()), 0,
                                   allowed[j])[0]
                for j in range(counts.shape[0]))
 
 
-def bound_ms(job, cand, dtype_name: str) -> tuple[float, str]:
+def bound_ms(cand, ops_t, params, totals: bool = False) -> tuple[float, str]:
     """Least time on an H100 for one launch: the larger of its bytes (each
-    input read once, the objective written once) over HBM and its needed
-    operations over the fp peak."""
+    input read once, each output written once: the objective, and with
+    ``totals`` the latency, energy and per-operator index) over HBM and
+    its needed operations over the fp peak."""
     J, C = cand.shape[:2]
-    nbytes = cand.element_size() * (cand.numel() + job.ops.numel()
-                                    + J * 33 + J * C)
+    outputs = J * C * (3 if totals else 1)
+    nbytes = cand.element_size() * (cand.numel() + ops_t.numel()
+                                    + params.numel() + outputs) \
+        + (4 * J * C * ops_t.shape[1] if totals else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = needed_flops(job, C) / FP_PEAK[dtype_name] * 1e3
+    t_ops = needed_flops(ops_t, params, C) / FP_PEAK[dtype_of(cand)] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class LaunchShapes:
+    """While installed, counts every ``strategy_eval`` launch by shape
+    (J, C, P, dtype, totals) and keeps a copy of the first launch's inputs
+    of each shape, so the kernel can be timed later on the main path's own
+    data. It costs host time and copies, so no timed span runs under it."""
+
+    def __init__(self, se):
+        self.se = se
+        self.counts: collections.Counter = collections.Counter()
+        self.inputs: dict[tuple, tuple] = {}
+
+    def __enter__(self):
+        self.orig = launch = self.se.launch
+
+        def recording(cand, ops_t, params, penalty_scale, **kw):
+            key = (cand.shape[0], cand.shape[1], ops_t.shape[1],
+                   dtype_of(cand), bool(kw.get("totals")))
+            self.counts[key] += 1
+            if key not in self.inputs:
+                self.inputs[key] = (cand.clone(), ops_t.clone(),
+                                    params.clone(), float(penalty_scale))
+            return launch(cand, ops_t, params, penalty_scale, **kw)
+        self.se.launch = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.se.launch = self.orig
+
+
+#: C++ names of the kernel's element types
+CXX_TYPES = {"float32": "float", "float64": "double"}
+
+
+def se_instantiations(build, se) -> dict[str, dict]:
+    """Registers, spill bytes and ``MUFU.RCP`` count of each
+    ``strategy_eval`` instantiation, by its C++ element type."""
+    pattern = r"strategy_eval_kernel<(\w+)>"
+    rows: dict[str, dict] = {}
+    for name, regs, st, ld in ptxas_table(se.ptxas_report()):
+        m = re.match(pattern, name)
+        if m:
+            rows[m.group(1)] = dict(regs=regs, spill_bytes=st + ld)
+    for mangled, c in sass_counts(build, se.library_path()).items():
+        m = re.match(pattern, short_name(mangled))
+        if m:
+            rows.setdefault(m.group(1), {})["mufu_rcp"] = c["MUFU.RCP"]
+    return rows
+
+
+def strategy_eval_rows(torch, se, shapes: LaunchShapes, insts: dict,
+                       card: str) -> list[dict]:
+    """Each launch shape the main path gave the kernel, on its own first
+    inputs, in fp32 and fp64: time per call and replayed from a CUDA
+    graph, bound and share of it, launches on the main path, and the
+    instantiation's registers, spills and ``MUFU.RCP``."""
+    fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
+    rows = []
+    for key in sorted(shapes.inputs, key=lambda k: (-k[0] * k[1], k)):
+        cand, ops_t, params, ps = shapes.inputs[key]
+        totals = key[4]
+        for dtype in (torch.float32, torch.float64):
+            c, o, p = (x.to(dtype) for x in (cand, ops_t, params))
+            fn = lambda: se.launch(c, o, p, ps, totals=totals)
+            b_ms, b_by = bound_ms(c, o, p, totals)
+            ms, g_ms = timed_ms(torch, fn), graph_ms(torch, fn)
+            inst = insts.get(CXX_TYPES[dtype_of(c)], {})
+            row = dict(shape=list(key[:3]), totals=totals, dtype=dtype_of(c),
+                       launches=shapes.counts[key], ms=ms, graph_ms=g_ms,
+                       bound_ms=b_ms, bound_by=b_by, **inst)
+            rows.append(row)
+            print(f"[strategy_eval] [J {key[0]}, C {key[1]}, P {key[2]}]"
+                  f"{' totals' if totals else ''} {row['dtype']}: "
+                  f"{ms:.4f} ms per call, graph {fmt(g_ms)}; bound "
+                  f"{b_ms:.6f} ms ({b_by}), {b_ms / ms:.4f} of bound per call"
+                  + (f", {b_ms / g_ms:.4f} from the graph" if g_ms else "")
+                  + f"; {row['launches']} main-path launches; "
+                  f"{inst.get('regs', '?')} registers, "
+                  f"{inst.get('spill_bytes', '?')} bytes of spills, "
+                  f"{inst.get('mufu_rcp', '?')} MUFU.RCP; {card}", flush=True)
+    spent = sum(r["launches"] * (r["graph_ms"] or 0.0) for r in rows
+                if r["dtype"] == "float32")
+    print(f"[strategy_eval] main path: {sum(shapes.counts.values())} "
+          f"launches over {len(shapes.counts)} shapes; launches x "
+          f"graph-replayed time per shape (fp32) = {spent:.4f} ms of device "
+          f"time; {card}", flush=True)
+    return rows
 
 
 def ptxas_summary(report: str) -> str:
@@ -212,35 +330,48 @@ def ptxas_table(report: str) -> list[tuple[str, int, int, int]]:
     return rows
 
 
+#: element types in mangled template arguments
+MANGLED_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
+
+
 def short_name(mangled: str) -> str:
-    """``tc::af_kernel<128, 64, 128>`` or ``af_kernel<float, 128, 64,
-    128>`` from a matmul or attention kernel's mangled name (the ``tc::``
-    kernels, the bf16 tensor-core routes, take no element type)."""
-    m = re.search(r"([a-z]+_kernel)I(f?)((?:Li\d+E)+)", mangled)
-    if not m:
+    """``tc::af_kernel<128, 64, 128>``, ``af_kernel<float, 128, 64, 128>``
+    or ``strategy_eval_kernel<double, 2>`` from a kernel's mangled name
+    (the ``tc::`` kernels, the bf16 tensor-core routes, take no element
+    type)."""
+    m = re.search(r"([a-z_]+_kernel)I(f|d|13__nv_bfloat16)?((?:Li\d+E)*)E",
+                  mangled)
+    if not m or not (m.group(2) or m.group(3)):
         return mangled
     args = re.findall(r"Li(\d+)E", m.group(3))
-    return (("" if m.group(2) else "tc::") + m.group(1) + "<"
-            + ", ".join((["float"] if m.group(2) else []) + args) + ">")
+    typed = [MANGLED_TYPES[m.group(2)]] if m.group(2) else []
+    return ("" if typed else "tc::") + m.group(1) + "<" + \
+        ", ".join(typed + args) + ">"
 
 
-def sass_counts(build, lib: Path) -> dict[str, tuple[int, int]]:
-    """(HGMMA, UTMALDG) instruction counts of each kernel function in a
+#: SASS instructions counted per kernel function: wgmma, TMA loads, and
+#: the reciprocal seed of every IEEE division (fp32 MUFU.RCP, fp64
+#: MUFU.RCP64H), one or two per division site plus the slow path's
+SASS_OPS = ("HGMMA", "UTMALDG", "MUFU.RCP")
+
+
+def sass_counts(build, lib: Path) -> dict[str, dict[str, int]]:
+    """Counts of each of :data:`SASS_OPS` in each kernel function of a
     library's SASS (``cuobjdump -sass``), by mangled name."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
-    counts: dict[str, list[int]] = {}
+    counts: dict[str, dict[str, int]] = {}
     name = None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = [0, 0]
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name:
-            counts[name][0] += "HGMMA" in line
-            counts[name][1] += "UTMALDG" in line
-    return {k: (v[0], v[1]) for k, v in counts.items()}
+            for op in SASS_OPS:
+                counts[name][op] += op in line
+    return counts
 
 
 def card_line() -> str:
@@ -436,6 +567,19 @@ def graph_ms(torch, fn, calls: int = 20):
         return None
 
 
+def scan_geometry(torch, ss_k, args: tuple, kwargs: dict) -> dict:
+    """The scan launch's blocks, threads a block, most blocks an SM holds
+    and resident warps per SM in the first wave."""
+    xi, a = args[0], args[4]
+    b, _, i = xi.shape
+    ct = kwargs.get("ct", ss_k.DEFAULT_CT)
+    ci = kwargs.get("ci", ss_k.DEFAULT_CI)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = ss_k.geometry(xi.dtype, b, i, a.shape[1], ct, ci)
+    resident = min(g["blocks"], g["blocks_per_sm"] * sms)
+    return dict(g, warps_per_sm=resident * -(-g["threads"] // 32) / sms)
+
+
 def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
     """One wrapper call on the card against its plain version: error, the
     kernel's, plain version's and library call's times (per call, and
@@ -453,17 +597,36 @@ def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
     g_ms = graph_ms(torch, lambda: fn(*args, **kwargs))
     lib_g_ms = graph_ms(torch, lib) if lib is not None else None
     b_ms, b_by = kernel_bound_ms(kernel, args, kwargs)
+    geo = {}
+    if kernel == "selective_scan":
+        from repro_torch.kernels import selective_scan as ss_k
+        geo = scan_geometry(torch, ss_k, args, kwargs)
     fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
     print(f"[kernels] {kernel} {label}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {fmt(library_ms)}, bound "
           f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound; graph-replayed "
           f"kernel {fmt(g_ms)}, library {fmt(lib_g_ms)}"
           + (f", {b_ms / g_ms:.3f} of bound" if g_ms else "")
-          + f"; max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol}); "
-          f"{card}", flush=True)
+          + f"; max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol})"
+          + (f"; launch {geo['blocks']} blocks x {geo['threads']} threads, "
+             f"{geo['warps_per_sm']:.2f} warps per SM" if geo else "")
+          + f"; {card}", flush=True)
     return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                graph_ms=g_ms, library_graph_ms=lib_g_ms)
+                graph_ms=g_ms, library_graph_ms=lib_g_ms, **geo)
+
+
+def falcon_scan_args(rng, on_card, dtype, dev) -> tuple:
+    """Inputs of the falcon-mamba-7b scan at full width (1 x 2048 x 8192 x
+    16), drawn from ``rng``."""
+    import torch
+    b_, t, i, s_st = FALCON_SCAN
+    return (on_card(rng.standard_normal((b_, t, i)), dtype),
+            on_card(np.abs(rng.standard_normal((b_, t, i))) * 0.1, dtype),
+            on_card(rng.standard_normal((b_, t, s_st)), dtype),
+            on_card(rng.standard_normal((b_, t, s_st)), dtype),
+            on_card(-np.abs(rng.standard_normal((i, s_st)))),
+            torch.zeros((b_, i, s_st), device=dev))
 
 
 def main() -> None:
@@ -569,12 +732,12 @@ def main() -> None:
             job, cand, 1e3), reps=5, warmup=1)
         got = se.launch(cand, job.ops, params, 1e3)
         want = ref.job_objective_ref(job, cand, 1e3)
-        b_ms, b_by = bound_ms(job, cand, dname)
+        b_ms, b_by = bound_ms(cand, job.ops, params)
         timing[dname] = dict(
             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=float((got - want).abs().max()),
-            flops=needed_flops(job, cand.shape[1]), shape=list(cand.shape)
-            + [job.ops.shape[1]])
+            flops=needed_flops(job.ops, params, cand.shape[1]),
+            shape=list(cand.shape) + [job.ops.shape[1]])
         print(f"[kernel] {dname} [24 jobs, 4096, P=8]: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"{timing[dname]['flops'] / (k_ms * 1e-3) / 1e12:.2f} "
@@ -778,14 +941,19 @@ def main() -> None:
                 print(f"[build]   {kname}: {regs} registers, {st} bytes of "
                       f"spill stores, {ld} of spill loads")
         counts = sass_counts(build, lib)
-        tc = {k: v for k, v in counts.items()
+        tc = {k: (v["HGMMA"], v["UTMALDG"]) for k, v in counts.items()
               if any(t in k for t in TC_KERNELS.get(name, ()))}
-        print(f"[sass] {lib.name}: HGMMA {sum(v[0] for v in counts.values())}"
-              f", UTMALDG {sum(v[1] for v in counts.values())} over "
+        total = lambda op: sum(v[op] for v in counts.values())
+        print(f"[sass] {lib.name}: HGMMA {total('HGMMA')}, UTMALDG "
+              f"{total('UTMALDG')}, MUFU.RCP {total('MUFU.RCP')} over "
               f"{len(counts)} kernels; bf16 tensor-core instantiations "
               f"{len(tc)}, each HGMMA/UTMALDG: "
               + ", ".join(f"{short_name(k)} {h}/{u}"
                           for k, (h, u) in sorted(tc.items())))
+        if not tc:
+            print(f"[sass] {lib.name}: MUFU.RCP per kernel: " + ", ".join(
+                f"{short_name(k)} {v['MUFU.RCP']}"
+                for k, v in sorted(counts.items())))
         want = {"cim_matmul": 16, "flash_attention": 8}.get(name, 0)
         if len(tc) != want:
             fail(f"{name}: {len(tc)} bf16 tensor-core kernels in the SASS, "
@@ -890,10 +1058,12 @@ def main() -> None:
     micro = obs_profile._microbench_cases(tuple(NEW_KERNELS),
                                           np.random.default_rng(0), dev)
     # the same shapes in bf16, for the two kernels with a tensor-core route
+    # and the scan (its a and h0 stay fp32)
     micro += [(kernel, tiling, fn,
-               tuple(x.to(torch.bfloat16) for x in args), kwargs)
+               tuple(x.to(torch.bfloat16) if kernel in TC_KERNELS or n < 4
+                     else x for n, x in enumerate(args)), kwargs)
               for kernel, tiling, fn, args, kwargs in micro
-              if kernel in TC_KERNELS]
+              if kernel in TC_KERNELS or kernel == "selective_scan"]
     for kernel, tiling, fn, args, kwargs in micro:
         new_cases[kernel].append(measure_case(
             torch, ref, kernel, fn, args, kwargs,
@@ -917,16 +1087,11 @@ def main() -> None:
                          {"causal": causal},
                          f"{name} {bh}x{t}x{t}x{d} causal={causal}"))
     for dtype in (torch.float32, torch.bfloat16):
-        b_, t, i, s_st = 1, 2048, 8192, 16
-        args = (on_card(rng.standard_normal((b_, t, i)), dtype),
-                on_card(np.abs(rng.standard_normal((b_, t, i))) * 0.1, dtype),
-                on_card(rng.standard_normal((b_, t, s_st)), dtype),
-                on_card(rng.standard_normal((b_, t, s_st)), dtype),
-                on_card(-np.abs(rng.standard_normal((i, s_st)))),
-                torch.zeros((b_, i, s_st), device=dev))
-        full.append(("selective_scan", ops.selective_scan, args,
-                     {"ct": 128, "ci": 64},
-                     f"falcon-mamba-7b {b_}x{t}x{i}x{s_st} ct128xci64"))
+        full.append(("selective_scan", ops.selective_scan,
+                     falcon_scan_args(rng, on_card, dtype, dev),
+                     FALCON_TILING, "falcon-mamba-7b "
+                     + "x".join(map(str, FALCON_SCAN)) + " ct{ct}xci{ci}"
+                     .format(**FALCON_TILING)))
     for kernel, fn, args, kwargs, label in full:
         new_cases[kernel].append(measure_case(
             torch, ref, kernel, fn, args, kwargs,
@@ -1025,6 +1190,35 @@ def main() -> None:
           f"route; "
           f"{explore_launches} launches; own job key")
 
+    # ---- 10. strategy_eval at each of the main path's launch shapes -------
+    # each path once more, untimed, its launches recorded by shape
+    shapes = LaunchShapes(se)
+    for name, drive, timed_launches in (
+            ("Fig. 7 sweep", lambda: engine.run(jobs, method="exhaustive"),
+             main_launches),
+            ("SA", lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2),
+             sa_launches),
+            ("microbench", lambda: obs_profile.run_microbench(
+                kernels=("strategy_eval",)), cal_launches["strategy_eval"]),
+            ("calibrated job", lambda: port_core.co_explore(
+                macro, wl, FIG7_BUDGET_MM2, method="exhaustive",
+                tech=cm.tech), explore_launches)):
+        ops.job_objective.launches = 0
+        ops.strategy_eval.launches = 0
+        before = sum(shapes.counts.values())
+        with shapes:
+            drive()
+            torch.cuda.synchronize()
+        recorded = sum(shapes.counts.values()) - before
+        counted = ops.job_objective.launches + ops.strategy_eval.launches
+        if not recorded == counted == timed_launches:
+            fail(f"{name}: {recorded} strategy_eval launches recorded, "
+                 f"{counted} counted, {timed_launches} in its timed run")
+    se_launches = main_launches + sa_launches + explore_launches \
+        + cal_launches["strategy_eval"]
+    se_rows = strategy_eval_rows(torch, se, shapes,
+                                 se_instantiations(build, se), card)
+
     t32 = timing["float32"]
     new_lines = []
     for name, (source, replaces) in NEW_KERNELS.items():
@@ -1039,14 +1233,14 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": main_launches + sa_launches + explore_launches
-        + cal_launches["strategy_eval"],
+        "launches": se_launches,
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
         "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": None,
         "design": DESIGNS["strategy_eval"],
         "float64": {k: timing["float64"][k] for k in (
             "ms", "plain_ms", "bound_ms", "max_abs_err")},
+        "shapes": se_rows,
     }, *new_lines]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,26 +6,43 @@
 // job_objective: per-job macro/tech constants, strategy mask, objective
 // code and area budget, with the area penalty and the bandwidth rule.
 //
-// What bounds it on an H100: operations.  Per (candidate, operator,
-// strategy) matmul_cost is some 120 scalar floating-point operations
-// (divisions, floors and ceilings included; the count is in chip_smoke.py)
-// on 6 + 5 input values, and a candidate's 6 values are read once for all
-// of its operators and strategies.  At 67 TFLOP/s (fp32) or 34 TFLOP/s
-// (fp64) outside the tensor cores, the arithmetic outweighs the bytes by
-// three orders of magnitude.  The design therefore keeps everything in
-// registers: one thread per (job, candidate), the job's operator rows and
-// its 33 constants staged once per block in shared memory, the 8
-// strategies unrolled with their bits as template constants so each
-// strategy compiles to its own branch-free arithmetic, and a strategy the
-// job's mask disallows is not computed at all (the mask is per job, so a
-// whole block takes the same path).
+// What bounds it on an H100: operations, and among them the IEEE
+// divisions.  Per (candidate, operator, strategy) matmul_cost is some 120
+// scalar floating-point operations on 6 + 5 input values; the arithmetic
+// outweighs the bytes by three orders of magnitude.  Twelve or thirteen of
+// those operations are divisions (ceil and floor of quotients), and each
+// IEEE division is a reciprocal seed, Newton steps and a slow-path branch:
+// evaluated strategy by strategy, the divisions are most of the work.
 //
-// Numerics kept from the reference: IEEE division (never fast math; the
-// model takes ceil/floor of quotients), no FMA contraction (built with
-// -fmad=false, so each product rounds as in the reference), the
-// reference's operation order term for term, and an argmin that keeps the
-// first index on ties (strict <), as jnp.argmin does -- every infeasible
-// strategy ties at INFEASIBLE = 1e30.
+// What the design does about it:
+// - Work is shared, not repeated.  Of a strategy's quotients only
+//   ema_cycles and lat_s depend on its (WP, PF) bits.  The rest depend on
+//   the job and REV alone (cyc_c, cyc_u, computed once per block into
+//   shared memory beside the 33 constants, with freq_mhz * 1e6), on the
+//   candidate (os_rows_af), or on (candidate, operator, REV): tK, tN, G, H,
+//   rows_res_raw, B and the PF rows os_full and os_rem.  These are computed
+//   once per (candidate, operator, REV) and the four (WP, PF) strategies
+//   of that REV are evaluated from them: about a third of the divisions.
+// - A strategy the job's mask disallows is not computed (the mask is per
+//   job, so a whole block takes the same branch), nor is a REV half with
+//   no allowed strategy, nor the PF rows when no PF strategy is allowed.
+// - Two lanes take a candidate, one REV half each, and one
+//   __shfl_xor_sync per operator combines the halves' best strategies.
+//   REV is a value, not a template argument, so the two lanes run one
+//   instruction stream.  An SA step's [1 job, 64 chains] launch gets 128
+//   threads and half the serial chain; a thread per candidate (both
+//   halves in turn, 140 registers in fp64 against 128) measured slower at
+//   every launch shape of the main path, the sweep's [24, 4096] included.
+//
+// Numerics kept from the reference, so the kernel equals the plain version
+// bit for bit: every quantity is computed from the same operands by the
+// same operations in the same order (a shared term is only computed fewer
+// times), IEEE division (never fast math; the model takes ceil/floor of
+// quotients), no FMA contraction (built with -fmad=false, so each product
+// rounds as in the reference), and an argmin that keeps the first index on
+// ties (strict <), as jnp.argmin does -- every infeasible strategy ties at
+// INFEASIBLE = 1e30, and REV = 0 (strategies 0-3) wins a tie between the
+// halves.
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,9 +61,13 @@ enum Param {
 };
 static_assert(NPARAM == 33, "parameter layout changed");
 
+// per-job terms computed once per block, stored after the constants
+enum Derived { D_CYC_C, D_CYC_U = D_CYC_C + 2, D_FREQ_HZ = D_CYC_U + 2, NDERIVED };
+
 constexpr int OPS_COLS = 5;
 constexpr int CAND_COLS = 6;
 constexpr int BLOCK = 128;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T mx(T a, T b) { return a > b ? a : b; }
 template <typename T> __device__ __forceinline__ T mn(T a, T b) { return a < b ? a : b; }
@@ -59,84 +80,113 @@ __device__ __forceinline__ T score(T lat, T en, int code) {
   return code == 1 ? lat : (code == 2 ? lat * en : en);
 }
 
+// terms of one candidate, shared by all its operators and strategies
 template <typename T>
 struct Config {
   T mr, mc, scr, is_bits, os_bits, bw, area;
+  T Kp, Np;          // macro tile: mr * al rows, mc * pc columns
+  T os_rows_af;      // output-SRAM rows of one AF column group
+  bool os_feasible;  // the output SRAM holds one psum row
+  bool overlap;      // CIM updates overlap compute
 };
 
-// cost_model.matmul_cost for one strategy; returns latency and energy
-// (INFEASIBLE where the strategy does not fit).  REV/WP/PF are the
-// strategy's (reversed, weight_priority, parallel_first) bits.
-template <typename T, bool REV, bool WP, bool PF>
-__device__ __forceinline__ void matmul_cost(T m, T k, T n, const Config<T>& c,
-                                            const T* prm, T& lat_out, T& en_out) {
-  const T INF = T(1e30);
-  const T al = prm[P_AL], pc = prm[P_PC];
-  const T dw_psum = prm[P_DW_PSUM], dw_out = prm[P_DW_OUT];
+// terms of one (candidate, operator, REV), shared by its 4 strategies
+template <typename T>
+struct RevTerms {
+  T M, dwt, cyc_u;
+  T tK, tN, Npad, H, G, remN, scr_n;
+  T rows_res, B, remB;
+  T MKd;             // M * Kpad * dws: the streamed matrix's bits
+  T planes, compute_cycles, macs, y_bits;
+  T os_full, os_rem; // PF: output-SRAM rows of a full and the last group
+  bool wp_feasible, is_feasible, fits_all_v, fits_all_s;
+};
 
-  const T M = REV ? n : m;
-  const T N = REV ? m : n;
+// cost_model.matmul_cost up to the strategy bits: everything the four
+// (WP, PF) strategies of one REV share.
+template <typename T>
+__device__ __forceinline__ RevTerms<T> rev_terms(int rev, T m, T k, T n, const Config<T>& c,
+                                                 const T* prm, bool need_pf) {
+  RevTerms<T> r;
+  const T dw_psum = prm[P_DW_PSUM];
+  r.M = rev ? n : m;
+  const T N = rev ? m : n;
   const T K = k;
-  const T dws = REV ? prm[P_DW_W] : prm[P_DW_IN];
-  const T dwt = REV ? prm[P_DW_IN] : prm[P_DW_W];
+  const T dws = rev ? prm[P_DW_W] : prm[P_DW_IN];
+  r.dwt = rev ? prm[P_DW_IN] : prm[P_DW_W];
+  const T cyc_c = prm[NPARAM + D_CYC_C + rev];
+  r.cyc_u = prm[NPARAM + D_CYC_U + rev];
 
-  const T cyc_c = mx(ceil_div(dws * al, prm[P_ICW]), T(1));
-  const T cyc_u = mx(ceil_div(al * dwt, prm[P_WUW]), T(1));
+  r.tK = ceil_div(K, c.Kp);
+  r.tN = ceil_div(N, c.Np);
+  const T Kpad = r.tK * c.Kp;
+  r.Npad = r.tN * c.Np;
+  r.planes = r.tK * r.tN;
 
-  const T Kp = c.mr * al;
-  const T Np = c.mc * pc;
-  const T tK = ceil_div(K, Kp);
-  const T tN = ceil_div(N, Np);
-  const T Kpad = tK * Kp;
-  const T Npad = tN * Np;
-  const T planes = tK * tN;
-
-  const T G = ceil_div(tK, c.scr);
-  const T H = ceil_div(tN, c.scr);
-  const T remN = tN - (H - T(1)) * c.scr;
-  const T scr_n = mn(c.scr, tN);
+  r.G = ceil_div(r.tK, c.scr);
+  r.H = ceil_div(r.tN, c.scr);
+  r.remN = r.tN - (r.H - T(1)) * c.scr;
+  r.scr_n = mn(c.scr, r.tN);
 
   const T rows_res_raw = floor_div(c.is_bits, Kpad * dws);
-  const bool wp_feasible = rows_res_raw >= T(1);
-  const T rows_res = mn(mx(rows_res_raw, T(1)), M);
-  const T B = ceil_div(M, rows_res);
-  const T remB = M - (B - T(1)) * rows_res;
-  const bool is_feasible = c.is_bits >= Kp * dws;
-  const bool fits_all_v = M * Kpad * dws <= c.is_bits;
+  r.wp_feasible = rows_res_raw >= T(1);
+  r.rows_res = mn(mx(rows_res_raw, T(1)), r.M);
+  r.B = ceil_div(r.M, r.rows_res);
+  r.remB = r.M - (r.B - T(1)) * r.rows_res;
+  r.is_feasible = c.is_bits >= c.Kp * dws;
+  r.MKd = r.M * Kpad * dws;
+  r.fits_all_v = r.MKd <= c.is_bits;
+  r.fits_all_s = r.planes <= c.scr;
 
-  const T v_refetch_ip = fits_all_v ? T(1) : (PF ? H : tN);
-  const T v_bits = M * Kpad * dws * (WP ? T(1) : v_refetch_ip);
+  r.compute_cycles = r.M * r.planes * cyc_c;
+  r.macs = r.M * Kpad * r.Npad;
+  r.y_bits = r.M * r.Npad * prm[P_DW_OUT];
 
-  const bool fits_all_s = planes <= c.scr;
-  const T s_loads = planes * ((WP && !fits_all_s) ? B : T(1));
-  const T s_bits = s_loads * Kp * Np * dwt;
-  const T update_cycles = s_loads * cyc_u;
+  if (need_pf) {
+    r.os_full = floor_div(c.os_bits, r.scr_n * c.Np * dw_psum);
+    r.os_rem = floor_div(c.os_bits, r.remN * c.Np * dw_psum);
+  } else {
+    r.os_full = r.os_rem = T(0);
+  }
+  return r;
+}
 
-  const T compute_cycles = M * planes * cyc_c;
-  const T macs = M * Kpad * Npad;
+// The rest of cost_model.matmul_cost for one (WP, PF) strategy; returns
+// latency and energy (INFEASIBLE where the strategy does not fit).
+template <typename T, bool WP, bool PF>
+__device__ __forceinline__ void strategy_cost(const RevTerms<T>& r, const Config<T>& c,
+                                              const T* prm, T& lat_out, T& en_out) {
+  const T INF = T(1e30);
+  const T Np = c.Np;
+  const T dw_psum = prm[P_DW_PSUM];
+  const T M = r.M, tK = r.tK, tN = r.tN, G = r.G, H = r.H, B = r.B;
+
+  const T v_refetch_ip = r.fits_all_v ? T(1) : (PF ? H : tN);
+  const T v_bits = r.MKd * (WP ? T(1) : v_refetch_ip);
+
+  const T s_loads = r.planes * ((WP && !r.fits_all_s) ? B : T(1));
+  const T s_bits = s_loads * c.Kp * Np * r.dwt;
+  const T update_cycles = s_loads * r.cyc_u;
 
   const T is_wr = v_bits;
-  const T is_rd = M * Kpad * dws * (PF ? H : tN);
+  const T is_rd = r.MKd * (PF ? H : tN);
 
   T spill_bits;
   if (!PF) {
-    const T os_rows_af = floor_div(c.os_bits, Np * dw_psum);
     if (WP) {
       spill_bits = T(2) * (G - T(1)) * Np * dw_psum * tN
-          * ((B - T(1)) * spill(rows_res, os_rows_af) + spill(remB, os_rows_af));
+          * ((B - T(1)) * spill(r.rows_res, c.os_rows_af) + spill(r.remB, c.os_rows_af));
     } else {
-      spill_bits = T(2) * (G - T(1)) * spill(M, os_rows_af) * Np * dw_psum * tN;
+      spill_bits = T(2) * (G - T(1)) * spill(M, c.os_rows_af) * Np * dw_psum * tN;
     }
   } else {
     const T nfull = H - T(1);
-    const T os_full = floor_div(c.os_bits, scr_n * Np * dw_psum);
-    const T os_rem = floor_div(c.os_bits, remN * Np * dw_psum);
     auto pf_rows = [&](T work) {
-      return nfull * spill(work, os_full) * scr_n + spill(work, os_rem) * remN;
+      return nfull * spill(work, r.os_full) * r.scr_n + spill(work, r.os_rem) * r.remN;
     };
     if (WP) {
       spill_bits = T(2) * (tK - T(1)) * Np * dw_psum
-          * ((B - T(1)) * pf_rows(rows_res) + pf_rows(remB));
+          * ((B - T(1)) * pf_rows(r.rows_res) + pf_rows(r.remB));
     } else {
       spill_bits = T(2) * (tK - T(1)) * Np * dw_psum * pf_rows(M);
     }
@@ -144,26 +194,22 @@ __device__ __forceinline__ void matmul_cost(T m, T k, T n, const Config<T>& c,
 
   const T groups_per_col = PF ? tK : G;
   const T os_wr = M * tN * groups_per_col * Np * dw_psum;
-  const T os_rd = M * tN * (groups_per_col - T(1)) * Np * dw_psum + M * Npad * dw_psum;
-  const bool os_feasible = c.os_bits >= Np * dw_psum;
+  const T os_rd = M * tN * (groups_per_col - T(1)) * Np * dw_psum + M * r.Npad * dw_psum;
 
-  const T y_bits = M * Npad * dw_out;
-
-  const T ema_bits = v_bits + s_bits + spill_bits + y_bits;
+  const T ema_bits = v_bits + s_bits + spill_bits + r.y_bits;
   const T ema_cycles = ceil_div(ema_bits, c.bw);
 
-  const bool overlap = (prm[P_UPDATE_DURING_COMPUTE] * (c.scr >= T(2) ? T(1) : T(0))) != T(0);
-  const T busy = mx(compute_cycles, ema_cycles);
-  const T latency = overlap ? mx(busy, update_cycles) : busy + update_cycles;
+  const T busy = mx(r.compute_cycles, ema_cycles);
+  const T latency = c.overlap ? mx(busy, update_cycles) : busy + update_cycles;
 
-  const bool feasible = is_feasible && os_feasible && (!WP || wp_feasible);
+  const bool feasible = r.is_feasible && c.os_feasible && (!WP || r.wp_feasible);
 
-  const T e_dyn = (macs * prm[P_MAC_E_PJ]
+  const T e_dyn = (r.macs * prm[P_MAC_E_PJ]
                    + s_bits * prm[P_E_CIM_UPDATE]
                    + (is_rd + os_rd) * prm[P_E_SRAM_RD]
                    + (is_wr + os_wr) * prm[P_E_SRAM_WR]
                    + ema_bits * prm[P_E_EMA]) * prm[P_SYS_OVERHEAD];
-  const T lat_s = latency / (prm[P_FREQ_MHZ] * T(1e6));
+  const T lat_s = latency / prm[NPARAM + D_FREQ_HZ];
   const T e_leak = prm[P_LEAK_MW_MM2] * c.area * lat_s * T(1e9);
   const T energy = e_dyn + e_leak;
 
@@ -171,26 +217,60 @@ __device__ __forceinline__ void matmul_cost(T m, T k, T n, const Config<T>& c,
   en_out = feasible ? energy : INF;
 }
 
-// One strategy of the unrolled argmin: skipped (INFEASIBLE) when the mask
-// disallows it, first index kept on ties.
-template <typename T, int S>
-__device__ __forceinline__ void try_strategy(T m, T k, T n, const Config<T>& c,
-                                             const T* prm, int code, T& best_score,
-                                             T& best_lat, T& best_en, int& best) {
+// The best of one REV half's four strategies, first index kept on ties
+template <typename T>
+struct Best {
+  T score, lat, en;
+  int idx;
+};
+
+// Strategy s0 + (WP, PF) of the half's argmin: skipped (INFEASIBLE) when
+// the mask disallows it.
+template <typename T, bool WP, bool PF>
+__device__ __forceinline__ void try_strategy(int s0, const RevTerms<T>& r, const Config<T>& c,
+                                             const T* prm, int code, Best<T>& best) {
+  constexpr int OFF = (WP ? 2 : 0) + (PF ? 1 : 0);
   const T INF = T(1e30);
   T lat = INF, en = INF;
-  if (prm[P_ALLOWED + S] > T(0)) {
-    matmul_cost<T, (S & 4) != 0, (S & 2) != 0, (S & 1) != 0>(m, k, n, c, prm, lat, en);
-  }
+  if (prm[P_ALLOWED + s0 + OFF] > T(0)) strategy_cost<T, WP, PF>(r, c, prm, lat, en);
   const T s = score(lat, en, code);
-  if (S == 0 || s < best_score) {
-    best_score = s;
-    best_lat = lat;
-    best_en = en;
-    best = S;
-  }
+  if (OFF == 0 || s < best.score) best = {s, lat, en, s0 + OFF};
 }
 
+template <typename T>
+__device__ __forceinline__ Best<T> best_of_half(int rev, T m, T k, T n, const Config<T>& c,
+                                                const T* prm, int code) {
+  const int s0 = 4 * rev;
+  const T* allowed = prm + P_ALLOWED + s0;
+  Best<T> best;
+  if (allowed[0] > T(0) || allowed[1] > T(0) || allowed[2] > T(0) || allowed[3] > T(0)) {
+    const RevTerms<T> r = rev_terms<T>(rev, m, k, n, c, prm,
+                                       allowed[1] > T(0) || allowed[3] > T(0));
+    try_strategy<T, false, false>(s0, r, c, prm, code, best);
+    try_strategy<T, false, true>(s0, r, c, prm, code, best);
+    try_strategy<T, true, false>(s0, r, c, prm, code, best);
+    try_strategy<T, true, true>(s0, r, c, prm, code, best);
+  } else {  // the whole half disallowed: its first strategy at INFEASIBLE
+    const T INF = T(1e30);
+    best = {score(INF, INF, code), INF, INF, s0};
+  }
+  return best;
+}
+
+// The argmin over both halves: REV = 1's best only where strictly lower,
+// so strategies 0-3 win ties, as a first-index argmin over 0..7 does.
+template <typename T>
+__device__ __forceinline__ Best<T> combine(const Best<T>& rev0, const Best<T>& rev1) {
+  return rev1.score < rev0.score ? rev1 : rev0;
+}
+
+template <typename T>
+__device__ __forceinline__ Best<T> shfl_xor(const Best<T>& b, int mask) {
+  return {__shfl_xor_sync(FULL_MASK, b.score, mask), __shfl_xor_sync(FULL_MASK, b.lat, mask),
+          __shfl_xor_sync(FULL_MASK, b.en, mask), __shfl_xor_sync(FULL_MASK, b.idx, mask)};
+}
+
+// Two lanes per candidate: lane 0 of a pair takes REV = 0, lane 1 REV = 1.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 strategy_eval_kernel(const T* __restrict__ cand, const T* __restrict__ ops,
@@ -198,20 +278,37 @@ strategy_eval_kernel(const T* __restrict__ cand, const T* __restrict__ ops,
                      T* __restrict__ lat_out, T* __restrict__ en_out,
                      int* __restrict__ idx_out, int C, int P, T penalty_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* prm = reinterpret_cast<T*>(smem_raw);
-  T* sops = prm + NPARAM;
+  T* prm = reinterpret_cast<T*>(smem_raw);   // NPARAM constants, NDERIVED terms
+  T* sops = prm + NPARAM + NDERIVED;
   const int j = blockIdx.y;
   for (int i = threadIdx.x; i < NPARAM; i += blockDim.x)
     prm[i] = params[static_cast<size_t>(j) * NPARAM + i];
   for (int i = threadIdx.x; i < P * OPS_COLS; i += blockDim.x)
     sops[i] = ops[static_cast<size_t>(j) * P * OPS_COLS + i];
   __syncthreads();
+  if (threadIdx.x < 2) {          // cyc_c, cyc_u of REV = threadIdx.x
+    const int rev = threadIdx.x;
+    const T al = prm[P_AL];
+    const T dws = rev ? prm[P_DW_W] : prm[P_DW_IN];
+    const T dwt = rev ? prm[P_DW_IN] : prm[P_DW_W];
+    prm[NPARAM + D_CYC_C + rev] = mx(ceil_div(dws * al, prm[P_ICW]), T(1));
+    prm[NPARAM + D_CYC_U + rev] = mx(ceil_div(al * dwt, prm[P_WUW]), T(1));
+  } else if (threadIdx.x == 2) {
+    prm[NPARAM + D_FREQ_HZ] = prm[P_FREQ_MHZ] * T(1e6);
+  }
+  __syncthreads();
 
-  const int ci = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ci >= C) return;                           // ragged candidate edge
+  // ragged candidate edge: a lane past it evaluates the last row (so both
+  // lanes of a pair reach every shuffle) and writes nothing
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ci_raw = t / 2;
+  const bool live = ci_raw < C;
+  const int ci = live ? ci_raw : C - 1;
+  const int half = t & 1;
   const size_t row = static_cast<size_t>(j) * C + ci;
   const T* cr = cand + row * CAND_COLS;
 
+  const T al = prm[P_AL], pc = prm[P_PC], dw_psum = prm[P_DW_PSUM];
   Config<T> c;
   c.mr = cr[0];
   c.mc = cr[1];
@@ -220,9 +317,13 @@ strategy_eval_kernel(const T* __restrict__ cand, const T* __restrict__ ops,
   c.bw = cr[5];
   c.is_bits = is_kb * T(1024) * T(8);
   c.os_bits = os_kb * T(1024) * T(8);
+  c.Kp = c.mr * al;
+  c.Np = c.mc * pc;
+  c.os_rows_af = floor_div(c.os_bits, c.Np * dw_psum);
+  c.os_feasible = c.os_bits >= c.Np * dw_psum;
+  c.overlap = (prm[P_UPDATE_DURING_COMPUTE] * (c.scr >= T(2) ? T(1) : T(0))) != T(0);
 
   // cost_model.area_mm2_t
-  const T al = prm[P_AL], pc = prm[P_PC];
   const T cells = al * pc * c.scr * prm[P_DW_W] * prm[P_A_CELL];
   const T cus = al * pc * prm[P_A_CU];
   const T macro_area = (cells + cus) * T(1e-6) + prm[P_A_MACRO_FIXED];
@@ -237,20 +338,15 @@ strategy_eval_kernel(const T* __restrict__ cand, const T* __restrict__ ops,
     const T k = sops[p * OPS_COLS + 1];
     const T n = sops[p * OPS_COLS + 2];
     const T count = sops[p * OPS_COLS + 3];
-    T best_score = T(0), best_lat = T(0), best_en = T(0);
-    int best = 0;
-    try_strategy<T, 0>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 1>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 2>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 3>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 4>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 5>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 6>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    try_strategy<T, 7>(m, k, n, c, prm, code, best_score, best_lat, best_en, best);
-    tot_lat = tot_lat + best_lat * count;
-    tot_en = tot_en + best_en * count;
-    if (idx_out) idx_out[row * P + p] = best;
+    const Best<T> mine = best_of_half(half, m, k, n, c, prm, code);
+    const Best<T> other = shfl_xor(mine, 1);
+    const Best<T> best = half ? combine(other, mine) : combine(mine, other);
+    // both lanes hold the same best; lane 0 of a pair writes
+    tot_lat = tot_lat + best.lat * count;
+    tot_en = tot_en + best.en * count;
+    if (idx_out && live && half == 0) idx_out[row * P + p] = best.idx;
   }
+  if (!live || half != 0) return;
 
   // cost_model.job_terms: score, area penalty, bandwidth rule
   T val = score(tot_lat, tot_en, code);
@@ -268,8 +364,9 @@ int launch(const void* cand, const void* ops, const void* params, void* obj,
            void* lat, void* en, void* idx, int J, int C, int P,
            double penalty_scale, void* stream) {
   if (J == 0 || C == 0) return 0;
-  const dim3 grid((C + BLOCK - 1) / BLOCK, J);
-  const size_t smem = (NPARAM + static_cast<size_t>(OPS_COLS) * P) * sizeof(T);
+  const long long threads = 2LL * C;
+  const dim3 grid(static_cast<unsigned>((threads + BLOCK - 1) / BLOCK), J);
+  const size_t smem = (NPARAM + NDERIVED + static_cast<size_t>(OPS_COLS) * P) * sizeof(T);
   strategy_eval_kernel<T><<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(cand), static_cast<const T*>(ops),
       static_cast<const T*>(params), static_cast<T*>(obj), static_cast<T*>(lat),
@@ -304,5 +401,7 @@ const char* strategy_eval_error_string(int code) {
 }
 
 int strategy_eval_nparam() { return NPARAM; }
+
+int strategy_eval_nderived() { return NDERIVED; }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """Build and binding of the hand-written CUDA ``selective_scan`` kernel.
 
 The kernel (``csrc/selective_scan.cu``) is the Mamba-1 recurrence,
-sequential over time, one thread per (batch row, channel) with its states
-in registers.  It replaces the Pallas TPU kernel of the reference
+sequential over time: a group of lanes per (batch row, channel), one
+state per lane in registers, y summed across the group by shuffles, and
+the chunks of dt, xi, B and C double-buffered in shared memory.  It
+replaces the Pallas TPU kernel of the reference
 (``repro/kernels/selective_scan.py``).  Built and loaded by ``build.py``
 at first use; nothing here runs when the module is imported.
 """
@@ -18,8 +20,8 @@ from repro_torch.kernels import build as _build
 SOURCE = _build.CSRC / "selective_scan.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
 
-DEFAULT_CT = 128       # time steps of B and C staged per chunk
-DEFAULT_CI = 256       # channels (threads) per block
+DEFAULT_CT = 128       # time steps staged per chunk
+DEFAULT_CI = 256       # channel tile (a block takes at most 64 channels)
 #: the chunk lengths and channel tiles the kernel takes
 CT_TILES = (16, 32, 64, 128)
 CI_TILES = (16, 32, 64, 128, 256)
@@ -33,6 +35,9 @@ def _library() -> ctypes.CDLL:
     lib.selective_scan.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.selective_scan.restype = ctypes.c_int
+    lib.selective_scan_geometry.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.selective_scan_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -42,6 +47,20 @@ def check_tiling(ct: int, ci: int) -> None:
         raise ValueError(f"ct={ct} is not a supported chunk length {CT_TILES}")
     if ci not in CI_TILES:
         raise ValueError(f"ci={ci} is not a supported channel tile {CI_TILES}")
+
+
+def geometry(dtype: torch.dtype, b: int, i: int, s: int, ct: int,
+             ci: int) -> dict:
+    """The launch :func:`launch` makes for these sizes on the current CUDA
+    device: blocks, threads a block, shared-memory bytes, lanes per
+    channel and the most blocks one SM holds."""
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    err = lib.selective_scan_geometry(DTYPES[dtype], b, i, s, ct, min(ci, i),
+                                      out)
+    _build.check_launch(lib, "selective_scan", err)
+    return dict(zip(("blocks", "threads", "smem_bytes", "group",
+                     "blocks_per_sm"), out))
 
 
 def launch(xi, dt, bmat, cmat, a, h0, *, ct: int = DEFAULT_CT,

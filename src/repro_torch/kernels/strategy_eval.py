@@ -5,7 +5,9 @@ over a ``[jobs, candidates]`` grid: every candidate row under every
 operator and all 8 mapping strategies, the per-operator argmin, the
 count-weighted totals, the area penalty and the bandwidth rule -- the
 engine's batched ``cost_model.job_objective``.  It replaces the Pallas
-TPU kernel of the reference (``repro/kernels/strategy_eval.py``).
+TPU kernel of the reference (``repro/kernels/strategy_eval.py``).  Two
+lanes take a candidate, one half of the 8 strategies each, and every term
+the strategies share is computed once.
 
 The source is compiled and loaded by the shared helper (``build.py``) at
 first use.  Nothing here runs when the module is imported.
@@ -24,6 +26,9 @@ SOURCE = _build.CSRC / "strategy_eval.cu"
 #: per-job constants the kernel reads: 11 macro, 12 tech, 8 mask, the
 #: objective code and the area budget (the layout of ``Param`` in the source)
 NPARAM = 33
+#: per-job terms the kernel derives once per block and keeps after the
+#: constants (cyc_c and cyc_u for REV = 0 and 1, the clock in Hz)
+NDERIVED = 5
 #: IEEE division (no fast math) and no FMA contraction keep the kernel's
 #: rounding equal to the plain version's
 NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
@@ -58,8 +63,11 @@ def _library() -> ctypes.CDLL:
             ctypes.c_double, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.strategy_eval_nparam.restype = ctypes.c_int
-    if lib.strategy_eval_nparam() != NPARAM:
-        raise RuntimeError("kernel parameter layout does not match NPARAM")
+    lib.strategy_eval_nderived.restype = ctypes.c_int
+    if (lib.strategy_eval_nparam(), lib.strategy_eval_nderived()) != (
+            NPARAM, NDERIVED):
+        raise RuntimeError("kernel parameter layout does not match NPARAM "
+                           "and NDERIVED")
     return lib
 
 
@@ -100,7 +108,7 @@ def launch(cand: torch.Tensor, ops: torch.Tensor, params: torch.Tensor,
     _build.check_tensor("params", params, (J, NPARAM), cand.dtype, cand.device)
     if J > 65535:
         raise ValueError(f"at most 65535 jobs per launch, got {J}")
-    if (NPARAM + 5 * P) * cand.element_size() > MAX_SHARED_BYTES:
+    if (NPARAM + NDERIVED + 5 * P) * cand.element_size() > MAX_SHARED_BYTES:
         raise ValueError(f"{P} operator rows exceed the kernel's shared memory")
     obj = torch.empty((J, C), dtype=cand.dtype, device=cand.device)
     lat = en = idx = None

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and neither
-``chip_smoke.py`` imports JAX or the reference package, and the package
-imports in a process where both are blocked."""
+"""The port stands alone: no module of ``repro_torch``, neither
+``chip_smoke.py`` nor a script under ``scripts/`` imports JAX or the
+reference package, and the package imports in a process where both are
+blocked."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "scripts").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 

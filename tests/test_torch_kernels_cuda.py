@@ -11,6 +11,12 @@ cim_matmul and flash_attention at every tile set (a ragged matmul that
 needs TMA padding, AF and PF; attention with T != S ragged, both head
 widths, causal or not) at chip_smoke.py's bf16 tolerances, misaligned
 operand bases, and HGMMA / UTMALDG in every bf16 instantiation's SASS.
+strategy_eval (two lanes a candidate) at an SA step's [1, 64] and each
+operator bucket, exact in fp32 and fp64 with identical indices, and no
+spills.  selective_scan at every (ct, ci) tile, S in {1, 4, 8, 16},
+ragged T and I, fp32 and bf16 (cp.async and plain staging), at
+chip_smoke.py's tolerances; at least 16 warps a SM at falcon-mamba-7b's
+width.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
@@ -274,3 +280,96 @@ def test_tensor_core_kernels_have_hgmma_in_sass(card):
         assert len(tc) == want
         for f in tc:
             assert "HGMMA" in f and "UTMALDG" in f, f.split()[0]
+
+
+# ---- strategy_eval at the main path's shapes, exact ------------------------
+
+def _bucket_jobs(card, dtype, n_ops):
+    """6 jobs (every objective and strategy set) over bert-large's
+    operators cut or padded to ``n_ops`` rows."""
+    ops_arr = bert_large_workload().merged().as_arrays(pad_to=16)[:n_ops]
+    rows = [cost_model.job_params_np(ops_arr, get_macro("vanilla-dcim"),
+                                     None, obj, sset, 5.0, 256)
+            for obj in ("ee", "th", "edp") for sset in ("st", "so")]
+    return cost_model.stack_job_params(rows, dtype, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 64, 8), (1, 63, 8), (6, 4096, 4),
+                                   (6, 4096, 8), (6, 4096, 16),
+                                   (6, 1000, 8), (6, 1, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_strategy_eval_exact_at_launch_shapes(card, shape, dtype):
+    """An SA step's [1, 64] (and a ragged [1, 63]) and sweep blocks at each
+    operator bucket: objective, totals and indices equal the plain
+    version's bit for bit."""
+    from repro_torch.kernels import strategy_eval as se
+    J, C, P = shape
+    job = _bucket_jobs(card, dtype, P)
+    job = job._replace(**{f: getattr(job, f)[:J] for f in job._fields
+                          if f not in ("macro", "tech")},
+                       macro=type(job.macro)(*[v[:J] for v in job.macro]),
+                       tech=type(job.tech)(*[v[:J] for v in job.tech]))
+    raw = candidates_with_bw(enumerate_space(DesignSpace()), 256)
+    rows = np.random.default_rng(C).choice(len(raw), (J, C))
+    cand = torch.as_tensor(raw[rows], dtype=dtype).to(card)
+    got = se.launch(cand, job.ops, se.pack_params(job), 1e3, totals=True)
+    torch.cuda.synchronize()
+    want = ref.job_objective_ref(job, cand, 1e3, totals=True)
+    for name, g, w in zip(("obj", "lat", "en", "idx"), got, want):
+        assert torch.equal(g, w), name
+
+
+def test_strategy_eval_has_no_spills(card):
+    import re
+
+    from repro_torch.kernels import strategy_eval as se
+    report = se.ptxas_report()
+    assert len(re.findall(r"Used \d+ registers", report)) == 2
+    assert all(int(x) == 0 for x in re.findall(r"(\d+) bytes spill", report))
+
+
+# ---- selective_scan: every tile, state width and dtype ---------------------
+
+SCAN_TOL = {torch.float32: (1e-3, 0.0), torch.bfloat16: (1e-3, 2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s", [1, 4, 8, 16])
+@pytest.mark.parametrize("ci", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("ct", [16, 32, 64, 128])
+def test_selective_scan_every_tile(card, ct, ci, s, dtype):
+    """B = 2, T two chunks and a ragged one, I past the tile (odd for S <=
+    4, so bf16 stages with plain loads; even above, so it takes cp.async)."""
+    from repro_torch.kernels import selective_scan as ss
+    shape = (2, 2 * ct + 7, ci + (5 if s <= 4 else 8), s)
+    args = _scan_args(card, np.random.default_rng(ct + ci + s), shape, dtype)
+    before = ops.selective_scan.launches
+    got = ops.selective_scan(*args, ct=ct, ci=ci)
+    torch.cuda.synchronize()
+    assert ops.selective_scan.launches == before + 1
+    assert ct in ss.CT_TILES and ci in ss.CI_TILES
+    for g, w in zip(got, ref.selective_scan_ref(*args)):
+        _within(g, w, *SCAN_TOL[dtype])
+
+
+def test_selective_scan_bf16_misaligned_base(card):
+    """bf16 inputs 2 bytes off a 4-byte boundary stage with plain loads."""
+    rng = np.random.default_rng(12)
+    args = list(_scan_args(card, rng, (1, 40, 32, 8), torch.bfloat16))
+    buf = _on(card, rng.standard_normal(1 + 40 * 32), torch.bfloat16)
+    args[0] = buf[1:].view(1, 40, 32)
+    got = ops.selective_scan(*args, ct=16, ci=32)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref.selective_scan_ref(*args)):
+        _within(g, w, *SCAN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_falcon_width_warps_per_sm(card, dtype):
+    from repro_torch.kernels import selective_scan as ss
+    g = ss.geometry(dtype, 1, 8192, 16, 128, 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = min(g["blocks"], g["blocks_per_sm"] * sms)
+    assert g["group"] == 16 and resident * g["threads"] / 32 / sms >= 16
