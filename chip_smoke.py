@@ -50,13 +50,28 @@ of which fails the run when it fails:
    calibrated bert-large exhaustive ``co_explore`` on the card, which
    must equal the same job with the plain versions and carry its own
    job key;
-10. strategy_eval per shape -- the paths of phases 4, 6 and 9 driven once
-   more, untimed, with every kernel launch recorded by shape (and the
+10. strategy_eval per shape -- the paths of phases 4, 6, 9 and 11 driven
+   once more, untimed, with every kernel launch recorded by shape (and the
    first inputs of each); each path's recorded launches must equal its
    launch counts and those of its timed run. Each shape is replayed in
-   fp32 and fp64: per call and from a CUDA graph, beside its bound,
-   launches, registers, spills and ``MUFU.RCP`` count; and the sum of
-   launches x graph time.
+   fp32 (and the shapes of phases 4, 6 and 9 in fp64): per call and from
+   a CUDA graph, beside its bound, launches, registers, spills and
+   ``MUFU.RCP`` count; and the sum of launches x graph time;
+11. search (run before phase 10, which records its launches) -- fp32 on
+   the full ``DesignSpace()`` at 5 mm^2, ``vanilla-dcim``:
+   ``co_explore(..., method=m)`` with default settings on bert-large for
+   m in sobol, genetic, evolution, portfolio (bandit), each within 1 %
+   (Sobol 10 %) of phase 4's exhaustive energy, within budget, and with
+   exactly the strategy_eval launches its settings give; the bandit
+   portfolio over the 28 Fig. 7 jobs with the kernel and with the plain
+   version on the card (identical configs, best values and pulls; each
+   job's ratio to its exhaustive objective printed); the halving
+   allocator twice (equal, and not worse than any rung-0 solo run); the
+   measured-fidelity rung with phase 9's artifact pinned (source
+   "artifact", both rankings, winner metrics equal to ``evaluate_config``
+   under the corrected tech) and unpinned (source "live": the live
+   microbench launches ``cim_matmul``, ``flash_attention`` and
+   ``selective_scan``).
 
 Phase 7 also counts ``MUFU.RCP`` (IEEE division) in every kernel's SASS;
 phase 8 prints each scan launch's blocks, threads and warps per SM.
@@ -262,17 +277,19 @@ def se_instantiations(build, se) -> dict[str, dict]:
 
 
 def strategy_eval_rows(torch, se, shapes: LaunchShapes, insts: dict,
-                       card: str) -> list[dict]:
+                       card: str, fp64_shapes: set) -> list[dict]:
     """Each launch shape the main path gave the kernel, on its own first
-    inputs, in fp32 and fp64: time per call and replayed from a CUDA
-    graph, bound and share of it, launches on the main path, and the
-    instantiation's registers, spills and ``MUFU.RCP``."""
+    inputs, in fp32 (and fp64 for ``fp64_shapes``): time per call and
+    replayed from a CUDA graph, bound and share of it, launches on the
+    main path, and the instantiation's registers, spills and
+    ``MUFU.RCP``."""
     fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
     rows = []
     for key in sorted(shapes.inputs, key=lambda k: (-k[0] * k[1], k)):
         cand, ops_t, params, ps = shapes.inputs[key]
         totals = key[4]
-        for dtype in (torch.float32, torch.float64):
+        for dtype in (torch.float32, torch.float64)[
+                :2 if key in fp64_shapes else 1]:
             c, o, p = (x.to(dtype) for x in (cand, ops_t, params))
             fn = lambda: se.launch(c, o, p, ps, totals=totals)
             b_ms, b_by = bound_ms(c, o, p, totals)
@@ -627,6 +644,278 @@ def falcon_scan_args(rng, on_card, dtype, dev) -> tuple:
             on_card(rng.standard_normal((b_, t, s_st)), dtype),
             on_card(-np.abs(rng.standard_normal((i, s_st)))),
             torch.zeros((b_, i, s_st), device=dev))
+
+
+#: the search methods phase 11 drives, each through co_explore's defaults
+SEARCH_METHODS = ("sobol", "genetic", "evolution", "portfolio")
+#: the reference's bar (tests/test_search.py): adaptive backends within 1 %
+#: of the exhaustive optimum, the Sobol baseline within 10 %
+SEARCH_TOL = {"sobol": 1.10}
+
+
+def backend_calls(name: str, settings) -> int:
+    """Evaluator calls of one batched run of a primitive backend: one per
+    SA step or GA / DE generation plus the initial population; one for a
+    Sobol sweep."""
+    if name == "sobol":
+        return 1
+    return (settings.n_steps if name == "sa" else settings.generations) + 1
+
+
+def search_launches(method: str, settings, results, timelines) -> int:
+    """The strategy_eval launches of one engine run of ``method`` over one
+    operator bucket, from its settings: the backend's calls, one launch
+    finishing the winners, and the pruned sweep of any snap-verify
+    fallback.  A portfolio makes, per race wave, one batched run of each
+    backend some job pulled (read from each job's flight-recorder pulls),
+    one final run per winning backend, and two re-scoring launches when
+    measured."""
+    from repro_torch.search import portfolio as pf
+    n = 1 + sum(math.ceil(r.search["kept"] / 4096) for r in results
+                if "kept" in r.search)
+    if method != "portfolio":
+        return n + backend_calls(method, settings)
+    names = settings.backends
+    waves: dict[int, set[int]] = {}
+    for tl in timelines:
+        before = dict.fromkeys(names, 0)
+        for ev in tl["events"]:
+            if ev["phase"] != "race":
+                continue
+            waves.setdefault(ev["rung"], set()).update(
+                b for b, name in enumerate(names)
+                if ev["pulls"][name] > before[name])
+            before = ev["pulls"]
+    plan = (lambda b, w: pf.race_plan(settings)[w][names[b]]) \
+        if settings.allocator == "halving" else \
+        (lambda b, w: pf.bandit_pull_plan(settings, b, 0))
+    n += sum(backend_calls(names[b], plan(b, w))
+             for w, bs in waves.items() for b in bs)
+    final = pf.final_plan(settings)
+    n += sum(backend_calls(name, final[name]) for name in
+             {r.search["portfolio"]["winner"] for r in results})
+    return n + (2 if settings.fidelity == "measured" else 0)
+
+
+def se_launches_now(ops) -> int:
+    return ops.job_objective.launches + ops.strategy_eval.launches
+
+
+def reset_launches(ops) -> None:
+    ops.job_objective.launches = 0
+    for w in ops.KERNEL_WRAPPERS.values():
+        w.launches = 0
+
+
+def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
+                 artifact, card) -> list[tuple]:
+    """Phase 11: Sobol, GA, DE and the portfolio through their entry points
+    on the card (each against the exhaustive optimum of phase 4 and its
+    launch arithmetic), the bandit portfolio over the Fig. 7 jobs with the
+    kernel and with the plain version, the halving allocator, and the
+    measured-fidelity rung pinned and live.  Returns each path as (name,
+    drive, strategy_eval launches) for phase 10."""
+    from repro_torch import obs as port_obs
+    from repro_torch import search as port_search
+    from repro_torch.core import calibration as cal
+    macro = port_core.get_macro("vanilla-dcim")
+    wl = port_core.bert_large_workload()
+    by = {m: r for r, m in zip(exhaustive, meta)}
+    ex_energy = by[("bert-large", "st", "ee")].metrics["energy_pj"]
+    sync = lambda: torch.cuda.synchronize() if dev.type == "cuda" else None
+    paths: list[tuple] = []
+
+    def key_of(job, method, settings):
+        return port_core.job_key(job, method, settings)
+
+    def timelines(keys):
+        return [port_obs.flight_recorder().timeline(k) for k in keys]
+
+    def timed(drive):
+        reset_launches(ops)
+        sync()
+        t0 = time.perf_counter()
+        out = drive()
+        sync()
+        return out, time.perf_counter() - t0, se_launches_now(ops)
+
+    def check_metrics(label, r):
+        if not all(math.isfinite(r.metrics[k]) and r.metrics[k] > 0
+                   for k in ("tops_w", "gops", "area_mm2", "energy_pj")):
+            fail(f"{label}: non-finite metrics {r.metrics}")
+        if r.metrics["area_mm2"] > FIG7_BUDGET_MM2 * 1.001:
+            fail(f"{label}: over budget, {r.metrics['area_mm2']} mm^2")
+
+    # 11.1 each method alone, co_explore's defaults, bert-large ee
+    solo_job = lambda m: port_core.ExploreJob(
+        macro, wl, FIG7_BUDGET_MM2, space=port_core.DesignSpace(),
+        search_method=m)
+    for m in SEARCH_METHODS:
+        settings = port_search.get_backend(m).default_settings()
+        drive = lambda m=m: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                                 method=m, device=dev)
+        r, wall, n = timed(drive)
+        check_metrics(m, r)
+        ratio = r.metrics["energy_pj"] / ex_energy
+        if ratio > SEARCH_TOL.get(m, 1.01):
+            fail(f"{m}: energy {ratio:.5f}x the exhaustive optimum")
+        want = search_launches(m, settings, [r], timelines(
+            [key_of(solo_job(m), m, settings)]))
+        if n != want:
+            fail(f"{m}: {n} strategy_eval launches, its settings give {want}")
+        extra = f"; pulls {json.dumps(r.search['portfolio']['pulls'])}, " \
+            f"winner {r.search['portfolio']['winner']}" \
+            if m == "portfolio" else ""
+        print(f"[search] {m}: {r.summary()} in {wall:.3f} s, {n} launches "
+              f"(= settings); energy {ratio:.5f}x exhaustive{extra}; {card}",
+              flush=True)
+        paths.append((f"{m} alone", drive, n))
+
+    # 11.2 the bandit portfolio over the 28 Fig. 7 jobs, kernel and plain
+    ps = port_search.PortfolioSettings()
+    keys = [key_of(j, "portfolio", ps) for j in jobs]
+    engine = port_core.ExplorationEngine(device=dev)
+    drive = lambda: engine.run(jobs, method="portfolio", settings=ps,
+                               keys=keys)
+    res, wall, n = timed(drive)
+    tls = timelines(keys)
+    groups: dict[int, list[int]] = {}
+    for i, j in enumerate(jobs):
+        groups.setdefault(ops_bucket(j), []).append(i)
+    want = sum(search_launches("portfolio", ps, [res[i] for i in idxs],
+                               [tls[i] for i in idxs])
+               for idxs in groups.values())
+    if n != want:
+        fail(f"Fig. 7 portfolio: {n} launches, its pulls give {want}")
+    plain_engine = port_core.ExplorationEngine(
+        device=dev, evaluator=ref.job_objective_ref)
+    t0 = time.perf_counter()
+    plain = plain_engine.run(jobs, method="portfolio", settings=ps, keys=keys)
+    sync()
+    wall_plain = time.perf_counter() - t0
+    ratios = []
+    for r, q, m in zip(res, plain, meta):
+        if r.config != q.config or float(r.sa.best_value) != float(
+                q.sa.best_value) or r.search["portfolio"]["pulls"] != \
+                q.search["portfolio"]["pulls"]:
+            fail(f"Fig. 7 portfolio {m}: kernel {r.config} "
+                 f"{float(r.sa.best_value)!r} "
+                 f"{r.search['portfolio']['pulls']} vs plain {q.config} "
+                 f"{float(q.sa.best_value)!r} "
+                 f"{q.search['portfolio']['pulls']}")
+        check_metrics(f"Fig. 7 portfolio {m}", r)
+        metric = "energy_pj" if m[2] == "ee" else "latency_cycles"
+        ratios.append(r.metrics[metric] / by[m].metrics[metric])
+        if ratios[-1] < 1 - 1e-6:
+            fail(f"Fig. 7 portfolio {m} beat the exhaustive optimum: "
+                 f"{ratios[-1]}")
+    print("[search] Fig. 7 portfolio / exhaustive objective per job: "
+          + ", ".join(f"{m[0]} {m[1]} {m[2]} {x:.5f}"
+                      for m, x in zip(meta, ratios)))
+    print(f"[search] Fig. 7 portfolio (bandit), {len(jobs)} jobs: wall "
+          f"{wall:.3f} s with the kernel, {wall_plain:.3f} s with the plain "
+          f"version; "
+          f"{n} launches (= pulls); worst ratio {max(ratios):.5f}; configs, "
+          f"best values and pulls identical to the plain version's; {card}",
+          flush=True)
+    paths.append(("Fig. 7 portfolio", drive, n))
+
+    # 11.3 the halving allocator, twice; not worse than a rung-0 solo run
+    hs = port_search.PortfolioSettings(allocator="halving")
+    hjob = solo_job("portfolio")
+    drive = lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                         method="portfolio", settings=hs,
+                                         device=dev)
+    h1, wall, n = timed(drive)
+    h2 = drive()
+    if h1.config != h2.config or h1.metrics != h2.metrics or \
+            h1.search["portfolio"] != h2.search["portfolio"]:
+        fail("halving portfolio does not replay in one process")
+    want = search_launches("portfolio", hs, [h1],
+                           timelines([key_of(hjob, "portfolio", hs)]))
+    if n != want:
+        fail(f"halving portfolio: {n} launches, its pulls give {want}")
+    rung0 = port_search.race_plan(hs)[0]
+    best = float(h1.sa.best_value)
+    for name in hs.backends:
+        solo = port_core.co_explore(macro, wl, FIG7_BUDGET_MM2, method=name,
+                                    settings=rung0[name], device=dev)
+        if best > float(solo.sa.best_value) or \
+                h1.search["portfolio"]["race"][name] > float(
+                    solo.sa.best_value):
+            fail(f"halving portfolio worse than its rung-0 {name} run")
+    check_metrics("halving", h1)
+    print(f"[search] halving: {h1.summary()} in {wall:.3f} s, {n} launches; "
+          f"replays; not worse than any rung-0 solo run; pulls "
+          f"{json.dumps(h1.search['portfolio']['pulls'])}; {card}",
+          flush=True)
+    paths.append(("halving", drive, n))
+
+    # 11.4 the measured-fidelity rung: pinned artifact, then live
+    ms = port_search.PortfolioSettings(fidelity="measured")
+    drive = lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                         method="portfolio", settings=ms,
+                                         device=dev)
+    os.environ[cal.CALIBRATION_ENV] = str(artifact)
+    cal.reset_calibration_state()
+    pinned, wall, n = timed(drive)
+    tf = pinned.search["two_fidelity"]
+    if tf["source"] != "artifact" or not tf["analytic_ranking"] or \
+            sorted(tf["measured_ranking"]) != list(range(tf["topk"])):
+        fail(f"pinned measured rung: {json.dumps(tf)}")
+    want = search_launches("portfolio", ms, [pinned], timelines(
+        [key_of(solo_job("portfolio"), "portfolio", ms)]))
+    if n != want:
+        fail(f"measured portfolio: {n} launches, its pulls give {want}")
+    tech = cal.DEFAULT_TECH.with_corrections(
+        cal.load_calibration(str(artifact))[0])
+    m = port_core.evaluate_config(macro, pinned.config, wl, tech=tech,
+                                  device=dev)
+    for k in ("energy_pj", "latency_cycles", "tops_w", "gops", "area_mm2"):
+        if pinned.metrics[k] != m[k]:
+            fail(f"measured winner {k}: {pinned.metrics[k]} vs "
+                 f"evaluate_config under the corrected tech {m[k]}")
+    print(f"[search] measured (pinned artifact {tf['calibration_version']}):"
+          f" {pinned.summary()} in {wall:.3f} s, {n} launches; rank "
+          f"correlation {tf['rank_correlation']:.4f} over top "
+          f"{tf['topk']}; analytic winner {tf['analytic_winner']}, measured "
+          f"winner {tf['measured_winner']}; metrics = evaluate_config under "
+          f"the corrected tech; {card}", flush=True)
+    paths.append(("measured, pinned", drive, n))
+
+    live_key = []
+
+    def live():
+        pin = os.environ.pop(cal.CALIBRATION_ENV)
+        cal.reset_calibration_state()
+        try:
+            # the key the engine computes: nothing measured yet ("live")
+            live_key[:] = [key_of(solo_job("portfolio"), "portfolio", ms)]
+            return drive()
+        finally:
+            os.environ[cal.CALIBRATION_ENV] = pin
+            cal.reset_calibration_state()
+    live_r, wall, n = timed(live)
+    launched = {k: w.launches for k, w in ops.KERNEL_WRAPPERS.items()}
+    want = search_launches("portfolio", ms, [live_r], timelines(live_key))
+    if ops.job_objective.launches != want:
+        fail(f"live measured portfolio: {ops.job_objective.launches} "
+             f"launches, its pulls give {want}")
+    if live_r.search["two_fidelity"]["source"] != "live":
+        fail(f"unpinned measured rung: source "
+             f"{live_r.search['two_fidelity']['source']}")
+    if not all(launched[k] > 0 for k in NEW_KERNELS):
+        fail(f"the live measured rung launched no kernel for some wrapper: "
+             f"{launched}")
+    check_metrics("measured, live", live_r)
+    print(f"[search] measured (live fit "
+          f"{live_r.search['two_fidelity']['calibration_version']}): "
+          f"{live_r.summary()} in {wall:.3f} s; launches "
+          f"{json.dumps(launched)} (job_objective "
+          f"{ops.job_objective.launches})"
+          f"; {card}", flush=True)
+    paths.append(("measured, live", live, n))
+    return paths
 
 
 def main() -> None:
@@ -1190,9 +1479,15 @@ def main() -> None:
           f"route; "
           f"{explore_launches} launches; own job key")
 
+    # ---- 11. search: Sobol, GA, DE, the portfolio (before phase 10) ------
+    search_paths = phase_search(torch, port_core, ops, ref, dev, jobs, meta,
+                                results, artifact, card)
+
     # ---- 10. strategy_eval at each of the main path's launch shapes -------
     # each path once more, untimed, its launches recorded by shape
     shapes = LaunchShapes(se)
+    fp64_shapes: set = set()
+    path_counts: dict[str, collections.Counter] = {}
     for name, drive, timed_launches in (
             ("Fig. 7 sweep", lambda: engine.run(jobs, method="exhaustive"),
              main_launches),
@@ -1202,22 +1497,32 @@ def main() -> None:
                 kernels=("strategy_eval",)), cal_launches["strategy_eval"]),
             ("calibrated job", lambda: port_core.co_explore(
                 macro, wl, FIG7_BUDGET_MM2, method="exhaustive",
-                tech=cm.tech), explore_launches)):
-        ops.job_objective.launches = 0
-        ops.strategy_eval.launches = 0
-        before = sum(shapes.counts.values())
+                tech=cm.tech), explore_launches),
+            *search_paths):
+        if name == search_paths[0][0]:
+            fp64_shapes = set(shapes.counts)      # phases 4, 6 and 9
+        reset_launches(ops)
+        before = collections.Counter(shapes.counts)
         with shapes:
             drive()
             torch.cuda.synchronize()
-        recorded = sum(shapes.counts.values()) - before
-        counted = ops.job_objective.launches + ops.strategy_eval.launches
+        path_counts[name] = shapes.counts - before
+        recorded = sum(path_counts[name].values())
+        counted = se_launches_now(ops)
         if not recorded == counted == timed_launches:
             fail(f"{name}: {recorded} strategy_eval launches recorded, "
                  f"{counted} counted, {timed_launches} in its timed run")
-    se_launches = main_launches + sa_launches + explore_launches \
-        + cal_launches["strategy_eval"]
+    se_launches = sum(shapes.counts.values())
     se_rows = strategy_eval_rows(torch, se, shapes,
-                                 se_instantiations(build, se), card)
+                                 se_instantiations(build, se), card,
+                                 fp64_shapes)
+    graph32 = {(*r["shape"], r["totals"]): r["graph_ms"] or 0.0
+               for r in se_rows if r["dtype"] == "float32"}
+    for name, counts in path_counts.items():
+        spent = sum(c * graph32[(*k[:3], k[4])] for k, c in counts.items())
+        print(f"[strategy_eval] {name}: {sum(counts.values())} launches "
+              f"over {len(counts)} shapes, launches x graph time (fp32) = "
+              f"{spent:.4f} ms of device time; {card}", flush=True)
 
     t32 = timing["float32"]
     new_lines = []

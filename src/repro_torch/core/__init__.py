@@ -12,6 +12,7 @@ Public API:
                                        kernel timings -> energy factors)
     ExplorationEngine / ExploreJob  -- batched multi-job engine (the
                                        strategy_eval CUDA kernel on the card)
+    valid_methods                   -- the search backends + "exhaustive"
 """
 from repro_torch.core.annealing import SASettings
 from repro_torch.core.calibration import (
@@ -37,7 +38,7 @@ from repro_torch.core.cost_model import (
     workload_metrics,
 )
 from repro_torch.core.engine import (ExplorationEngine, ExploreJob,
-                                     default_engine, job_key)
+                                     default_engine, job_key, valid_methods)
 from repro_torch.core.explorer import (ExploreResult, co_explore,
                                        co_explore_macros, evaluate_config,
                                        pareto_explore)
@@ -64,4 +65,5 @@ __all__ = [
     "co_explore", "co_explore_macros", "pareto_explore",
     "evaluate_config", "ExploreResult",
     "ExplorationEngine", "ExploreJob", "default_engine", "job_key",
+    "valid_methods",
 ]

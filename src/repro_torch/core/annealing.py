@@ -13,11 +13,12 @@ value lists; the area budget enters as a smooth penalty inside the objective
 so chains can skirt the boundary.  Acceptance uses relative deltas
 (exp(-(new-old)/old / T)) to stay scale-free across objectives.
 
-Randomness comes from one ``torch.Generator`` seeded with
-``SASettings.seed``; every job of a batch sees the same uniform draws (as
-every job of a reference batch gets the same chain keys), so a job's walk
-does not depend on the batch it runs in.  The draws differ from JAX's
-threefry streams, so the port's SA is held to the reference on outcome.
+Each job draws its walk's uniforms up front from its own
+``torch.Generator`` (seeded ``SASettings.seed``, or a portfolio pull's
+derived seed), so a job's walk does not depend on the batch it runs in;
+jobs with equal seeds draw equal numbers, as every job of a reference
+batch gets the same chain keys.  The draws differ from JAX's threefry
+streams, so the port's SA is held to the reference on outcome.
 """
 from __future__ import annotations
 
@@ -52,14 +53,6 @@ def _axes_matrix(space: DesignSpace) -> tuple[np.ndarray, np.ndarray]:
     return mat, lens
 
 
-def cfg_of(mat: torch.Tensor, idx: torch.Tensor, bw: torch.Tensor):
-    """Axis-index rows [J, M, 5] -> cfg rows [J, M, 6] (bus width last)."""
-    J, n = idx.shape[:2]
-    vals = torch.gather(mat[:, None].expand(J, n, *mat.shape[1:]), 3,
-                        idx[..., None])[..., 0]
-    return torch.cat([vals, bw[:, None, None].expand(J, n, 1)], dim=2)
-
-
 def _uniform_index(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """floor(u * n) for u in [0, 1) and integer n, kept inside [0, n - 1]."""
     return torch.minimum(torch.floor(u * n).long(), n - 1)
@@ -71,41 +64,44 @@ def anneal(
     lens: torch.Tensor,        # [J, 5] true axis lengths (int64)
     bw: torch.Tensor,          # [J] external bus bandwidth (appended to cfg)
     settings: SASettings,
-    generator: torch.Generator,
+    generators,                # one torch.Generator per job
 ):
     """Vectorized-chain SA walk over a batch of jobs.
 
     Returns (best_idx [J, chains, 5], best_val [J, chains],
     hists [J, chains, steps]).
     """
+    # search.base imports this module's package through search/__init__
+    from repro_torch.search.base import cfg_from_indices, draw_per_job
+
     J, n, steps = mat.shape[0], settings.n_chains, settings.n_steps
     dev = mat.device
-    draw = dict(generator=generator, device=dev, dtype=torch.float64)
-    u_init = torch.rand((n, 5), **draw)
-    u = torch.rand((steps, n, 5), **draw)
+    u_init, u = draw_per_job(generators, lambda g: (
+        torch.rand((n, 5), generator=g, device=dev, dtype=torch.float64),
+        torch.rand((steps, n, 5), generator=g, device=dev,
+                   dtype=torch.float64)))
+    u = u.transpose(0, 1)                                   # [steps, J, n, 5]
     lens = lens.to(device=dev, dtype=torch.long)
 
-    idx = _uniform_index(u_init[None], lens[:, None, :])           # [J, n, 5]
-    val = objective_fn(cfg_of(mat, idx, bw))
+    idx = _uniform_index(u_init, lens[:, None, :])                 # [J, n, 5]
+    val = objective_fn(cfg_from_indices(mat, idx, bw))
     best_idx, best_val = idx, val
     temps = settings.t0 * settings.alpha ** np.arange(steps)
     hist = []
-    chains = torch.arange(n, device=dev)
     for t in range(steps):
-        axis = torch.floor(u[t, :, 0] * 5).long().clamp(max=4)      # [n]
-        jump = u[t, :, 1] < settings.jump_prob                      # [n]
-        delta = torch.where(u[t, :, 2] < 0.5, -1, 1)                # [n]
-        hi = lens[:, axis]                                          # [J, n]
-        cur = idx[:, chains, axis]                                  # [J, n]
+        axis = torch.floor(u[t, ..., 0] * 5).long().clamp(max=4)    # [J, n]
+        jump = u[t, ..., 1] < settings.jump_prob                    # [J, n]
+        delta = torch.where(u[t, ..., 2] < 0.5, -1, 1)              # [J, n]
+        hi = torch.gather(lens, 1, axis)                            # [J, n]
+        cur = torch.gather(idx, 2, axis[..., None])[..., 0]         # [J, n]
         new_pos = torch.where(
-            jump, _uniform_index(u[t, :, 3], hi),
+            jump, _uniform_index(u[t, ..., 3], hi),
             torch.minimum(torch.clamp_min(cur + delta, 0), hi - 1))
-        new_idx = idx.clone()
-        new_idx[:, chains, axis] = new_pos
-        new_val = objective_fn(cfg_of(mat, new_idx, bw))
+        new_idx = idx.scatter(2, axis[..., None], new_pos[..., None])
+        new_val = objective_fn(cfg_from_indices(mat, new_idx, bw))
         rel = (new_val - val) / torch.clamp_min(val, 1e-30)
         accept = (new_val < val) | (
-            u[t, :, 4].to(val.dtype)
+            u[t, ..., 4].to(val.dtype)
             < torch.exp(-rel / max(float(temps[t]), 1e-9)))
         idx = torch.where(accept[..., None], new_idx, idx)
         val = torch.where(accept, new_val, val)

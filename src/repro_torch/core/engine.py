@@ -16,6 +16,14 @@ The engine runs whole job lists through one batched objective:
    and per-operator strategies come from one more launch on the winning
    rows.
 
+The search method is pluggable (``repro_torch.search``): ``"sa"``,
+``"genetic"``, ``"evolution"`` and ``"sobol"`` run one batched backend
+call per (bucket, settings) group, every step of every job one evaluator
+call; the composite ``"portfolio"`` races them per job under a bandit
+(UCB) or successive-halving budget allocator
+(:meth:`ExplorationEngine._run_portfolio_batch`), with an optional
+measured-fidelity rung; ``"exhaustive"`` sweeps the pruned space.
+
 The engine runs on ``cuda`` unless the caller asks for ``device="cpu"``; a
 ``cuda`` engine on a host without a card raises.  ``dtype`` is
 ``torch.float32`` by default and ``torch.float64`` for exact integer
@@ -38,6 +46,7 @@ import typing
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import cost_model
 from repro_torch.core.annealing import SASettings, _axes_matrix
 from repro_torch.core.calibration import DEFAULT_TECH, TechConstants
@@ -47,7 +56,8 @@ from repro_torch.core.pruning import DesignSpace, candidates_with_bw, prune_spac
 from repro_torch.core.strategies import ALL_STRATEGIES
 from repro_torch.core.template import AcceleratorConfig, accelerator_area_mm2
 from repro_torch.kernels import ops
-from repro_torch.search.base import SearchResult, get_backend
+from repro_torch.search.base import (SearchResult, available_backends,
+                                     get_backend)
 
 __all__ = [
     "ExploreJob",
@@ -55,8 +65,34 @@ __all__ = [
     "ExplorationEngine",
     "default_engine",
     "job_key",
+    "preferred_settings",
     "resolve_device",
+    "valid_methods",
 ]
+
+
+# --------------------------------------------------------------------- #
+# telemetry families (process-wide, the reference's names)
+# --------------------------------------------------------------------- #
+_REG = obs.registry()
+_M_PULLS = _REG.counter(
+    "cim_search_pulls_total",
+    "Portfolio pulls granted per backend by the budget allocator",
+    ("backend", "allocator"))
+_M_RUNGS = _REG.counter(
+    "cim_search_rungs_total",
+    "Portfolio race rungs / bandit waves executed", ("allocator",))
+_M_SCHED_RELEASED = _REG.counter(
+    "cim_sched_budget_released_pulls_total",
+    "Race pulls released into the shared pool by flatlined jobs")
+_M_SCHED_ABSORBED = _REG.counter(
+    "cim_sched_budget_absorbed_pulls_total",
+    "Shared-pool race pulls absorbed by still-improving jobs")
+_M_SCHED_FLATLINED = _REG.counter(
+    "cim_sched_flatlined_jobs_total",
+    "Jobs whose bandit improvement rate flatlined mid-race")
+for _m in (_M_SCHED_RELEASED, _M_SCHED_ABSORBED, _M_SCHED_FLATLINED):
+    _m.inc(0)              # eager child: families render even when idle
 
 
 # --------------------------------------------------------------------- #
@@ -124,10 +160,19 @@ class ExploreResult:
 # --------------------------------------------------------------------- #
 # canonical job identity (in-run dedup)
 # --------------------------------------------------------------------- #
-#: bump when the cost model / result schema changes meaning
-JOB_KEY_SCHEMA = 1
+#: bump when the cost model / result schema changes meaning.  Schema 2: a
+#: ``calibration`` slot joined the payload -- the active calibration
+#: version when the settings request measured fidelity, ``None``
+#: otherwise -- so an analytic result never answers a calibrated query.
+JOB_KEY_SCHEMA = 2
 #: keeps a port result from ever sharing a key with a reference result
 PORT_TAG = "repro_torch"
+
+
+def valid_methods() -> tuple[str, ...]:
+    """Every accepted ``method=`` name: the registered search backends
+    plus the pruned-space ``"exhaustive"`` sweep."""
+    return available_backends() + ("exhaustive",)
 
 
 def _check_method(method: str) -> None:
@@ -184,15 +229,21 @@ def job_key(
     Two submissions share a key iff they are guaranteed the same result:
     same job ingredients, same search method (``None`` defers to
     ``job.search_method``), same backend settings (``None`` defers to a
-    type-matching ``job.search_settings``) and the same working dtype.
-    The payload carries the port's tag, so a port key never equals a
-    reference key.
+    type-matching ``job.search_settings``), the same working dtype, and,
+    for measured-fidelity settings, the same active calibration version
+    (read without running a kernel sweep).  The payload carries the
+    port's tag, so a port key never equals a reference key.
     """
     method = method or job.search_method
     settings = preferred_settings(job, method, settings)
+    calibration = None
+    if getattr(settings, "fidelity", "analytic") == "measured":
+        from repro_torch.core.calibration import active_calibration_version
+        calibration = active_calibration_version()
     payload = {
         "schema": JOB_KEY_SCHEMA,
         "port": PORT_TAG,
+        "calibration": calibration,
         "dtype": str(dtype),
         "job": _canonical(dataclasses.replace(
             job, space=job.design_space(), search_method=method,
@@ -242,9 +293,30 @@ def _job_arrays(p: _PreparedJob) -> cost_model.JobParams:
         j.strategy_set, j.area_budget_mm2, j.bw)
 
 
+def _spearman(a: np.ndarray, b: np.ndarray) -> float:
+    """Spearman rank correlation between two value vectors (1.0 for
+    degenerate inputs: fewer than two points, or zero rank variance).
+    The two-fidelity report uses it to quantify how well the analytic
+    ranking predicted the measured one."""
+    a = np.asarray(a, dtype=float)
+    b = np.asarray(b, dtype=float)
+    if len(a) < 2:
+        return 1.0
+    ra = np.argsort(np.argsort(a, kind="stable"),
+                    kind="stable").astype(float)
+    rb = np.argsort(np.argsort(b, kind="stable"),
+                    kind="stable").astype(float)
+    da, db = ra - ra.mean(), rb - rb.mean()
+    denom = float(np.sqrt((da ** 2).sum() * (db ** 2).sum()))
+    if denom == 0.0:                                   # pragma: no cover
+        return 1.0
+    return float((da * db).sum() / denom)
+
+
 def clone_result(r: ExploreResult) -> ExploreResult:
     """Fan-out copy for deduped submissions (fresh mutable containers so
-    callers mutating one result cannot alias another)."""
+    callers mutating one result cannot alias another).  ``search`` is
+    deep-copied: portfolio results nest mutable dicts inside it."""
     return dataclasses.replace(
         r, per_op_strategy=dict(r.per_op_strategy),
         metrics=dict(r.metrics), search=copy.deepcopy(r.search))
@@ -323,16 +395,27 @@ class ExplorationEngine:
         settings=None,
         sa_settings: SASettings | None = None,
         keys: typing.Sequence[str] | None = None,
+        admit: typing.Callable[[], list] | None = None,
     ) -> list[ExploreResult]:
         """Co-explore every job; results come back in submission order.
 
-        ``method`` is a registered search backend name (``"sa"``) or
+        ``method`` is a registered search backend name (``"sa"``,
+        ``"genetic"``, ``"evolution"``, ``"sobol"``, ``"portfolio"``) or
         ``"exhaustive"``; ``None`` uses each job's own ``search_method``.
         ``settings`` must match the backend's settings class, requires a
         homogeneous method across the batch, and overrides every job's own
         ``search_settings``; ``sa_settings`` is the SA spelling.  ``keys``
         lets callers that already computed :func:`job_key` for each job
         skip re-hashing; when given it must align 1:1 with ``jobs``.
+
+        ``admit`` is the continuous-batching admission hook: a callable
+        polled once per bandit wave that returns late-arriving ``(job,
+        key)`` pairs to join the in-flight race at the next rung boundary.
+        It requires a single-bucket batch running a bandit-allocator
+        portfolio; admitted jobs start their own pull schedule from zero,
+        so each one's result equals a solo submission bit for bit.  Their
+        results are appended AFTER the initial jobs' results, in
+        admission order.
         """
         t_start = time.perf_counter()
         if settings is None:
@@ -368,24 +451,44 @@ class ExplorationEngine:
         self.stats["jobs"] += len(jobs)
 
         results: list[ExploreResult | None] = [None] * len(jobs)
+        admitted_results: list[ExploreResult] = []
         groups: dict = {}
         for i in unique:
             key = (self._bucket_key(prepared[i], methods[i]), eff[i])
             groups.setdefault(key, []).append(i)
+        if admit is not None:
+            self._check_admittable(groups)
         for (bucket, group_settings), idxs in groups.items():
+            m = bucket[0]
             batch = [prepared[i] for i in idxs]
             self.stats["batches"] += 1
-            if bucket[0] == "exhaustive":
+            if m == "exhaustive":
                 outs = self._run_exhaustive_batch(batch)
+            elif get_backend(m).composite:
+                outs = self._run_portfolio_batch(
+                    batch, group_settings, job_keys=[keys[i] for i in idxs],
+                    admit=None if admit is None else
+                    self._wrap_admit(admit, bucket, m))
+                # rung-admitted jobs ride behind the initial batch
+                admitted_results = list(outs[len(idxs):])
+                outs = outs[:len(idxs)]
             else:
-                outs = self._run_search_batch(
-                    batch, get_backend(bucket[0]), group_settings)
+                outs = self._run_search_batch(batch, get_backend(m),
+                                              group_settings)
             for i, out in zip(idxs, outs):
                 results[i] = out
+        fanout: dict[str, int] = {}
         for i, k in enumerate(keys):
             if results[i] is None:
                 results[i] = clone_result(results[first_of[k]])
+                fanout[k] = fanout.get(k, 0) + 1
+        # dedup provenance: a timeline whose result fanned out to
+        # duplicate slots says so (annotate no-ops for keys without one)
+        recorder = obs.flight_recorder()
+        for k, n in fanout.items():
+            recorder.annotate(k, dedup_fanout=n)
 
+        results.extend(admitted_results)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         runtime = time.perf_counter() - t_start
@@ -437,12 +540,56 @@ class ExplorationEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype).to(self.device)
 
+    # ---- continuous-batching admission ---------------------------- #
+    @staticmethod
+    def _check_admittable(groups: dict) -> None:
+        """Reject ``admit=`` for batches that have no rung boundaries to
+        admit at: admission needs exactly one bucket, running the
+        composite portfolio under the bandit allocator (halving culls
+        across rungs and plain backends are single-shot, so a late join
+        would perturb the in-flight jobs)."""
+        if len(groups) != 1:
+            raise ValueError(
+                "rung admission requires a single executable bucket per "
+                f"run() call, got {len(groups)} groups")
+        ((bucket, group_settings),) = groups.keys()
+        m = bucket[0]
+        if m == "exhaustive" or not get_backend(m).composite or \
+                getattr(group_settings, "allocator", None) != "bandit":
+            raise ValueError(
+                "rung admission requires a bandit-allocator portfolio "
+                f"group, got method={m!r} allocator="
+                f"{getattr(group_settings, 'allocator', None)!r}")
+
+    def _wrap_admit(self, admit, bucket: tuple, method: str):
+        """Engine-side admission shim: prepares each late ``(job, key)``
+        pair the caller's hook returns and verifies it belongs to the
+        in-flight bucket (a mismatch would corrupt the batched launch
+        shapes)."""
+        def engine_admit() -> list:
+            out = []
+            for job, key in admit():
+                p = self._prepare(job)
+                got = self._bucket_key(p, method)
+                if got != bucket:
+                    raise ValueError(
+                        f"admitted job bucket {got} does not match the "
+                        f"in-flight group bucket {bucket}")
+                self.stats["jobs"] += 1
+                out.append((key, p))
+            return out
+        return engine_admit
+
     # ---- search-backend path -------------------------------------- #
-    def _run_search_batch(
+    def _dispatch_backend(
         self, batch: list[_PreparedJob], backend, settings,
-    ) -> list[ExploreResult]:
-        """One batched backend run over a bucket, then each job's winner
-        snapped to a config and finished."""
+        seed_rows: typing.Sequence[int] | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One batched backend run over a bucket; returns the device
+        tensors ``(best_idx [J, members, 5], best_val [J, members],
+        trace [J, steps])`` without waiting for them.  Each job draws
+        from its own generator, seeded ``settings.seed`` or, with
+        ``seed_rows``, its own seed (the bandit's per-job pull seeds)."""
         stacked = self._stack(batch)
         width = max(p.mat.shape[1] for p in batch)
         mats = np.stack([
@@ -457,39 +604,551 @@ class ExplorationEngine:
             return self.evaluator(stacked, cfg.contiguous(),
                                   self.penalty_scale)
 
-        best_idx, best_val, trace = backend.run(
+        return backend.run(
             objective, self._tensor(mats), lens, stacked.bw, settings,
-            backend.make_generator(settings, self.device))
-        best_idx, best_val, trace = (
-            x.cpu().numpy() for x in (best_idx, best_val, trace))
+            backend.make_generators(settings, self.device, len(batch),
+                                    seeds=seed_rows))
 
-        cfgs, searches, diags = [], [], []
-        for jx, p in enumerate(batch):
-            job = p.job
-            winner = int(np.argmin(best_val[jx]))
-            vals = p.mat[np.arange(5), best_idx[jx, winner]]
-            diags.append(SearchResult(
-                best_cfg=torch.as_tensor(
-                    np.concatenate([vals, [float(job.bw)]])),
-                best_value=torch.as_tensor(best_val[jx, winner]),
-                best_per_chain=torch.as_tensor(best_val[jx]),
-                trace_best=torch.as_tensor(trace[jx]),
-            ))
-            cfg = AcceleratorConfig(*[int(round(v)) for v in vals],
-                                    bw=job.bw)
-            search: dict = {"method": backend.name,
-                            "merged_ops": len(p.workload.ops),
-                            "raw_ops": len(job.workload.ops)}
-            # backends walk the raw grid with an area penalty; snap-verify
-            # feasibility and fall back to the pruned-space optimum if the
-            # penalty let the winner out of budget (rare)
-            if accelerator_area_mm2(cfg, job.macro, job.tech) > \
-                    job.area_budget_mm2 * 1.001:
-                cfg, stats = self._exhaustive_one(p)
-                search.update(stats)
-            cfgs.append(cfg)
-            searches.append(search)
-        return self._finish_batch(batch, cfgs, searches, diags)
+    def _search_winner(
+        self, p: _PreparedJob, method: str,
+        best_idx: np.ndarray,          # [members, 5] of this job
+        best_val: np.ndarray,          # [members]
+        trace: np.ndarray,             # [steps]
+    ) -> tuple[AcceleratorConfig, dict, SearchResult]:
+        """Shared epilogue of every stochastic backend: pick the winning
+        member, snap-verify the area budget, attach diagnostics."""
+        job = p.job
+        winner = int(np.argmin(best_val))
+        vals = p.mat[np.arange(5), best_idx[winner]]
+        diag = SearchResult(
+            best_cfg=torch.as_tensor(
+                np.concatenate([vals, [float(job.bw)]])),
+            best_value=torch.as_tensor(best_val[winner]),
+            best_per_chain=torch.as_tensor(best_val),
+            trace_best=torch.as_tensor(trace),
+        )
+        cfg = AcceleratorConfig(*[int(round(v)) for v in vals], bw=job.bw)
+        search: dict = {"method": method,
+                        "merged_ops": len(p.workload.ops),
+                        "raw_ops": len(job.workload.ops)}
+        # backends walk the raw grid with an area penalty; snap-verify
+        # feasibility and fall back to the pruned-space optimum if the
+        # penalty let the winner out of budget (rare)
+        if accelerator_area_mm2(cfg, job.macro, job.tech) > \
+                job.area_budget_mm2 * 1.001:
+            cfg, stats = self._exhaustive_one(p)
+            search.update(stats)
+        return cfg, search, diag
+
+    def _run_search_batch(
+        self, batch: list[_PreparedJob], backend, settings,
+    ) -> list[ExploreResult]:
+        """One batched backend run over a bucket, then each job's winner
+        snapped to a config and finished."""
+        best_idx, best_val, trace = (
+            x.cpu().numpy()
+            for x in self._dispatch_backend(batch, backend, settings))
+        won = [self._search_winner(p, backend.name, best_idx[jx],
+                                   best_val[jx], trace[jx])
+               for jx, p in enumerate(batch)]
+        return self._finish_batch(batch, *map(list, zip(*won)))
+
+    # ---- portfolio (bandit / successive-halving racer) ------------ #
+    def _run_portfolio_batch(
+        self, batch: list[_PreparedJob], settings,
+        job_keys: typing.Sequence[str] | None = None,
+        admit: typing.Callable[[], list] | None = None,
+    ) -> list[ExploreResult]:
+        """Race the constituent backends per job under the settings'
+        budget allocator, then spend the remaining budget on each job's
+        winner.  The reported best is the min across every phase.
+        ``job_keys`` (aligned 1:1 with ``batch``) enables per-rung events
+        on :func:`repro_torch.obs.progress_bus` and the flight recorder --
+        one event per job per race wave plus a ``phase="final"`` event.
+
+        ``allocator="bandit"``: after one initialization pull per backend
+        (identical to halving's rung 0), each adaptive pull goes to the
+        per-job UCB argmax over observed improvement rates -- rewards come
+        from the best-so-far traces the runs already return, so the
+        schedule is deterministic given the seed.
+        ``allocator="halving"``: fixed rungs, per-job culling to the best
+        ``ceil(k/2)`` each rung.
+
+        The bandit race runs as a wave scheduler: every bandit state (pull
+        counters, rewards, UCB choice, derived seeds) is per job, and each
+        job draws from generators seeded only by its own pull seeds, so:
+
+        * ``admit`` -- prepared late jobs returned by the hook join the
+          next wave at pull 0 and race to completion inside this call,
+          each equal to its solo run;
+        * cross-job budget flow -- with ``settings.flatline_waves > 0``,
+          a job whose last ``flatline_waves`` adaptive pulls each earned
+          reward below ``flatline_eps`` releases its remaining race pulls
+          into a shared pool that still-improving jobs drain one pull per
+          wave; per-job accounting lands in ``search["budget_flow"]``.
+
+        A wave launches every constituent's run on the card before the
+        host waits for any; the fold of each run into the per-job
+        incumbents (one copy to the host per backend per wave) is the
+        per-rung best exchange.  With ``fidelity="measured"`` a last rung
+        re-scores each job's top-K analytic candidates under
+        ``resolve_corrections()`` and reports both rankings.
+        """
+        from repro_torch.search.portfolio import (
+            bandit_pull_plan,
+            bandit_rounds,
+            constituent_devices,
+            derived_seed,
+            final_plan,
+            pull_reward,
+            race_plan,
+            ucb_scores,
+        )
+
+        batch = list(batch)
+        job_keys = None if job_keys is None else list(job_keys)
+        if admit is not None and job_keys is None:
+            raise ValueError("rung admission requires job_keys")
+        names = settings.backends
+        n_jobs, n_back = len(batch), len(names)
+        # the port races on the engine's one device: the placement is
+        # validated and every constituent wraps onto the one slot
+        n_devices = 1
+        dev_of = constituent_devices(settings, [None])
+        measured = getattr(settings, "fidelity", "analytic") == "measured"
+        bus = obs.progress_bus()
+        recorder = obs.flight_recorder()
+        # the flight recorder opens one decision timeline per job,
+        # capturing the same per-rung payloads the bus publishes (so the
+        # two reconcile exactly) plus bandit internals
+        device_map = {name: str(dev_of[b_idx] or "default")
+                      for b_idx, name in enumerate(names)}
+        if job_keys is not None:
+            for j in range(n_jobs):
+                recorder.start(
+                    job_keys[j], method="portfolio",
+                    allocator=settings.allocator, backends=list(names),
+                    devices=n_devices, device_map=device_map,
+                    total_evals=settings.total_evals,
+                    rungs=settings.rungs, seed=settings.seed)
+        best_val = np.full(n_jobs, np.inf)
+        best_idx = np.zeros((n_jobs, 5), dtype=np.int64)
+        per_backend = np.full((n_jobs, n_back), np.inf)
+        # diagnostics track the run that PRODUCED each job's current best,
+        # so min(best_per_chain) == min(trace_best) == the reported value
+        member_vals: list[np.ndarray | None] = [None] * n_jobs
+        traces: list[np.ndarray | None] = [None] * n_jobs
+        # per-job candidate pool across every phase (axis-index tuple ->
+        # best analytic value seen); the measured rung re-scores its
+        # top-K, so only a measured race fills it
+        pool: list[dict[tuple, float]] = [dict() for _ in range(n_jobs)]
+
+        def _launch(b_idx: int, scaled, sel: list[int], seed_rows=None):
+            """Launch one backend's run over ``sel`` on the card (the host
+            does not wait); returns a handle for :func:`_collect`."""
+            if not sel:
+                return None
+            arrays = self._dispatch_backend(
+                [batch[j] for j in sel], get_backend(names[b_idx]), scaled,
+                seed_rows=seed_rows)
+            return (b_idx, sel, arrays)
+
+        def _collect(handle, prev=None,
+                     fold_race=True) -> dict[int, tuple[float, float]]:
+            """Copy one launched run to the host and fold it into the
+            per-job incumbents (the best exchange); returns ``{job: (run
+            best, pull reward vs the pre-wave incumbents ``prev``)}``.
+            Only the bandit race passes ``prev``."""
+            b_idx, sel, arrays = handle
+            idx_a, val_a, tr_a = (x.cpu().numpy() for x in arrays)
+            out: dict[int, tuple[float, float]] = {}
+            for pos, j in enumerate(sel):
+                w = int(np.argmin(val_a[pos]))
+                v = float(val_a[pos, w])
+                out[j] = (v, pull_reward(prev[j], tr_a[pos])
+                          if prev is not None else 0.0)
+                if fold_race:
+                    per_backend[j, b_idx] = min(per_backend[j, b_idx], v)
+                if v < best_val[j]:
+                    best_val[j] = v
+                    best_idx[j] = idx_a[pos, w]
+                    member_vals[j] = val_a[pos]
+                    traces[j] = tr_a[pos]
+                if measured:
+                    pj = pool[j]
+                    for m in np.flatnonzero(np.isfinite(val_a[pos])):
+                        vm = float(val_a[pos, m])
+                        t = tuple(int(x) for x in idx_a[pos, m])
+                        if vm < pj.get(t, np.inf):
+                            pj[t] = vm
+            return out
+
+        pulls = np.zeros((n_jobs, n_back), dtype=np.int64)
+
+        def _record_pull(j: int, b_idx: int) -> None:
+            pulls[j, b_idx] += 1
+            _M_PULLS.inc(backend=names[b_idx], allocator=settings.allocator)
+
+        def _fin(v: float) -> float | None:
+            return float(v) if np.isfinite(v) else None
+
+        def _publish(phase: str, rung: int,
+                     jobs_touched: typing.Iterable[int],
+                     rewards: dict | None = None,
+                     ucb=None, chosen: dict | None = None) -> None:
+            """One progress event per touched job after a race wave (no-op
+            without ``job_keys``).  The identical payload lands on the
+            flight recorder, extended with the wave's bandit internals
+            (``rewards`` per job, UCB ``scores`` and the ``chosen`` arm)
+            for the jobs that made an ADAPTIVE pull this wave."""
+            if job_keys is None:
+                return
+            for j in jobs_touched:
+                payload = dict(
+                    phase=phase, allocator=settings.allocator,
+                    rung=rung, best=_fin(best_val[j]),
+                    backend_best={name: _fin(per_backend[j, b])
+                                  for b, name in enumerate(names)},
+                    pulls={name: int(pulls[j, b])
+                           for b, name in enumerate(names)},
+                    devices=n_devices)
+                bus.publish(job_keys[j], **payload)
+                if rewards is not None and j in rewards:
+                    payload["rewards"] = rewards[j]
+                if chosen is not None and j in chosen:
+                    if ucb is not None:
+                        payload["ucb"] = {name: _fin(ucb[j, b])
+                                          for b, name in enumerate(names)}
+                    payload["chosen"] = names[int(chosen[j])]
+                recorder.event(job_keys[j], payload)
+
+        # cross-job budget-flow accounting (bandit allocator only; the
+        # halving branch leaves the defaults, so ``search["budget_flow"]``
+        # reads uniformly for every portfolio result)
+        flatlined = [False] * n_jobs
+        released = [0] * n_jobs
+        absorbed = [0] * n_jobs
+        admit_wave = [0] * n_jobs
+        spare_pulls = 0
+
+        if settings.allocator == "halving":
+            alive = np.ones((n_jobs, n_back), dtype=bool)
+            for rung_no, rung in enumerate(race_plan(settings)):
+                _M_RUNGS.inc(allocator="halving")
+                with obs.span("engine.portfolio.rung", allocator="halving",
+                              rung=rung_no, jobs=n_jobs):
+                    handles = [
+                        _launch(b_idx, rung[name],
+                                [j for j in range(n_jobs)
+                                 if alive[j, b_idx]])
+                        for b_idx, name in enumerate(names)]
+                    for h in handles:
+                        if h is not None:
+                            for j in _collect(h):
+                                _record_pull(j, h[0])
+                _publish("race", rung_no, range(n_jobs))
+                # cull: each job keeps its best ceil(k/2) survivors
+                for j in range(n_jobs):
+                    live = np.flatnonzero(alive[j])
+                    keep = -(-len(live) // 2)
+                    order = live[np.argsort(per_backend[j, live],
+                                            kind="stable")]
+                    alive[j, order[keep:]] = False
+        else:                                          # "bandit"
+            # every job carries its OWN pull schedule (counters, rewards,
+            # derived seeds): the seed of pull p is derived_seed(seed,
+            # backend, p), batch-independent, so a late-admitted job
+            # starting at pull 0 follows exactly its solo trajectory
+            sum_reward = np.zeros((n_jobs, n_back))
+            base_rounds = bandit_rounds(settings)
+            flow_on = settings.flatline_waves > 0
+            needs_init = [True] * n_jobs
+            race_budget = [base_rounds] * n_jobs
+            flat_run = [0] * n_jobs   # consecutive flat adaptive pulls
+            wave = 0
+
+            def _admit_pending() -> None:
+                """Poll the caller's admission hook and extend every
+                per-job state row for the newcomers (they join the next
+                wave's initialization pulls)."""
+                nonlocal n_jobs, best_val, best_idx, per_backend, \
+                    pulls, sum_reward
+                for key, p in admit():
+                    batch.append(p)
+                    job_keys.append(key)
+                    best_val = np.append(best_val, np.inf)
+                    best_idx = np.concatenate(
+                        [best_idx, np.zeros((1, 5), dtype=np.int64)])
+                    per_backend = np.concatenate(
+                        [per_backend, np.full((1, n_back), np.inf)])
+                    pulls = np.concatenate(
+                        [pulls, np.zeros((1, n_back), dtype=np.int64)])
+                    sum_reward = np.concatenate(
+                        [sum_reward, np.zeros((1, n_back))])
+                    member_vals.append(None)
+                    traces.append(None)
+                    pool.append(dict())
+                    needs_init.append(True)
+                    race_budget.append(base_rounds)
+                    flat_run.append(0)
+                    flatlined.append(False)
+                    released.append(0)
+                    absorbed.append(0)
+                    admit_wave.append(wave)
+                    n_jobs += 1
+                    recorder.start(
+                        key, method="portfolio",
+                        allocator=settings.allocator,
+                        backends=list(names), devices=n_devices,
+                        device_map=device_map,
+                        total_evals=settings.total_evals,
+                        rungs=settings.rungs, seed=settings.seed,
+                        admitted_wave=wave)
+
+            while True:
+                if admit is not None:
+                    _admit_pending()
+                # plan the wave: newcomers initialize (one pull per
+                # backend, == halving's rung 0); veterans with budget
+                # make their UCB-argmax adaptive pull (first index wins
+                # ties); spent-but-hot jobs drain the shared pool one
+                # pull per wave
+                init_jobs = [j for j in range(n_jobs) if needs_init[j]]
+                chosen: dict[int, int] = {}
+                scores = None
+                spent = pulls.sum(axis=1)
+                ready = [j for j in range(n_jobs)
+                         if not needs_init[j] and not flatlined[j]]
+                if ready:
+                    scores = ucb_scores(
+                        sum_reward / np.maximum(pulls, 1), pulls,
+                        settings.ucb_c)
+                    choice = np.argmax(scores, axis=1)
+                    for j in ready:
+                        if spent[j] < race_budget[j]:
+                            chosen[j] = int(choice[j])
+                        elif spare_pulls > 0:
+                            spare_pulls -= 1
+                            absorbed[j] += 1
+                            chosen[j] = int(choice[j])
+                            _M_SCHED_ABSORBED.inc()
+                            if job_keys is not None:
+                                fp = dict(
+                                    phase="budget_flow", action="absorb",
+                                    allocator=settings.allocator,
+                                    rung=wave, absorbed=absorbed[j],
+                                    pool=spare_pulls)
+                                bus.publish(job_keys[j], **fp)
+                                recorder.event(job_keys[j], fp)
+                if not init_jobs and not chosen:
+                    break
+                _M_RUNGS.inc(allocator="bandit")
+                prev = best_val.copy()
+                touched: set[int] = set()
+                wave_rewards: dict[int, dict[str, float]] = {}
+                with obs.span("engine.portfolio.rung",
+                              allocator="bandit", rung=wave,
+                              jobs=n_jobs):
+                    handles = []
+                    for b_idx in range(n_back):
+                        sel = sorted(set(init_jobs) |
+                                     {j for j, b in chosen.items()
+                                      if b == b_idx})
+                        if not sel:
+                            continue
+                        handles.append(_launch(
+                            b_idx, bandit_pull_plan(settings, b_idx, 0),
+                            sel,
+                            seed_rows=[derived_seed(settings.seed, b_idx,
+                                                    int(pulls[j, b_idx]))
+                                       for j in sel]))
+                    for h in handles:
+                        for j, (_v, r) in _collect(h, prev).items():
+                            sum_reward[j, h[0]] += r
+                            _record_pull(j, h[0])
+                            touched.add(j)
+                            wave_rewards.setdefault(j, {})[
+                                names[h[0]]] = float(r)
+                            if flow_on and j in chosen:
+                                flat_run[j] = 0 \
+                                    if r >= settings.flatline_eps \
+                                    else flat_run[j] + 1
+                for j in init_jobs:
+                    needs_init[j] = False
+                _publish("race", wave, sorted(touched),
+                         rewards=wave_rewards, ucb=scores, chosen=chosen)
+                if flow_on:
+                    # flatline release: a job whose improvement rate
+                    # dried up hands its unspent race pulls to the pool
+                    spent = pulls.sum(axis=1)
+                    for j in range(n_jobs):
+                        if flatlined[j] or needs_init[j] or \
+                                flat_run[j] < settings.flatline_waves:
+                            continue
+                        rem = int(race_budget[j] - spent[j])
+                        flatlined[j] = True
+                        _M_SCHED_FLATLINED.inc()
+                        if rem > 0:
+                            released[j] = rem
+                            race_budget[j] = int(spent[j])
+                            spare_pulls += rem
+                            _M_SCHED_RELEASED.inc(rem)
+                        if job_keys is not None:
+                            fp = dict(
+                                phase="budget_flow", action="release",
+                                allocator=settings.allocator, rung=wave,
+                                released=rem, pool=spare_pulls,
+                                spent=int(spent[j]))
+                            bus.publish(job_keys[j], **fp)
+                            recorder.event(job_keys[j], fp)
+                wave += 1
+
+        # exploitation: the per-job winner gets the remaining budget
+        # (kept out of per_backend so `race` stays race-phase-only)
+        winners = per_backend.argmin(axis=1)
+        final = final_plan(settings)
+        final_best = np.full(n_jobs, np.inf)
+        with obs.span("engine.portfolio.final", allocator=settings.allocator,
+                      jobs=n_jobs):
+            handles = [
+                _launch(b_idx, final[name],
+                        [j for j in range(n_jobs) if winners[j] == b_idx])
+                for b_idx, name in enumerate(names)]
+            for h in handles:
+                if h is None:
+                    continue
+                for j, (v, _r) in _collect(h, fold_race=False).items():
+                    final_best[j] = v
+
+        # measured fidelity: re-score each job's top-K analytic
+        # candidates under kernel-measurement-calibrated tech constants
+        # and report both rankings plus their rank correlation
+        two_fidelity: list[dict | None] = [None] * n_jobs
+        preps = list(batch)
+        win_idx, win_val = best_idx, best_val
+        if measured:
+            from repro_torch.core.calibration import (
+                calibration_version,
+                resolve_corrections,
+            )
+
+            with obs.span("engine.portfolio.measured",
+                          allocator=settings.allocator, jobs=n_jobs):
+                cf, source, meas_records = resolve_corrections()
+                version = calibration_version(cf)
+                topk = int(getattr(settings, "topk", 8))
+                preps = [
+                    p._replace(job=dataclasses.replace(
+                        p.job, tech=p.job.tech.with_corrections(cf)))
+                    for p in batch]
+                top_rows, cand_rows = [], []
+                for j, p in enumerate(batch):
+                    # deterministic top-K: analytic value, then axis
+                    # indices break ties
+                    ranked = sorted(pool[j].items(),
+                                    key=lambda kv: (kv[1], kv[0]))[:topk]
+                    top_rows.append([t for t, _v in ranked])
+                    cand_rows.append(np.stack([
+                        np.concatenate(
+                            [p.mat[np.arange(5), np.asarray(t)],
+                             [float(p.job.bw)]])
+                        for t, _v in ranked]))
+                vals_a = self._sweep_values(self._stack(batch), cand_rows)
+                vals_m = self._sweep_values(self._stack(preps), cand_rows)
+                win_idx = np.zeros((n_jobs, 5), dtype=np.int64)
+                win_val = np.full(n_jobs, np.inf)
+                for j in range(n_jobs):
+                    va, vm = vals_a[j], vals_m[j]
+                    order_a = np.argsort(va, kind="stable")
+                    order_m = np.argsort(vm, kind="stable")
+                    w = int(order_m[0])
+                    win_idx[j] = top_rows[j][w]
+                    win_val[j] = float(vm[w])
+                    two_fidelity[j] = {
+                        "source": source,
+                        "calibration_version": version,
+                        "corrections": cf.as_dict(),
+                        "topk": len(va),
+                        "measurement_count": len(meas_records),
+                        "analytic_ranking": [int(x) for x in order_a],
+                        "measured_ranking": [int(x) for x in order_m],
+                        "analytic_values": [float(x) for x in va],
+                        "measured_values": [float(x) for x in vm],
+                        "rank_correlation": _spearman(va, vm),
+                        "analytic_winner": [
+                            int(x)
+                            for x in cand_rows[j][int(order_a[0])][:5]],
+                        "measured_winner": [
+                            int(x) for x in cand_rows[j][w][:5]],
+                    }
+                    if job_keys is not None:
+                        obs.profile.record_measurements(
+                            job_keys[j], meas_records)
+
+        if job_keys is not None:
+            for j in range(n_jobs):
+                payload = dict(
+                    phase="final", allocator=settings.allocator,
+                    winner=names[int(winners[j])], best=_fin(best_val[j]),
+                    final=_fin(final_best[j]),
+                    pulls={name: int(pulls[j, b])
+                           for b, name in enumerate(names)},
+                    devices=n_devices)
+                bus.publish(job_keys[j], **payload)
+                recorder.event(job_keys[j], payload)
+                if two_fidelity[j] is not None:
+                    mp = dict(
+                        phase="measured", allocator=settings.allocator,
+                        best=_fin(win_val[j]),
+                        rank_correlation=two_fidelity[j][
+                            "rank_correlation"],
+                        topk=two_fidelity[j]["topk"],
+                        calibration=two_fidelity[j][
+                            "calibration_version"],
+                        devices=n_devices)
+                    bus.publish(job_keys[j], **mp)
+                    recorder.event(job_keys[j], mp)
+                recorder.finish(
+                    job_keys[j], winner=payload["winner"],
+                    best=payload["best"], final=payload["final"],
+                    pulls=payload["pulls"])
+
+        # a two-fidelity race answers with its measured winner, finished
+        # under the calibrated constants
+        won = [self._search_winner(preps[j], "portfolio",
+                                   win_idx[j][None, :],
+                                   np.asarray([win_val[j]]), traces[j])
+               for j in range(n_jobs)]
+        results = self._finish_batch(preps, *map(list, zip(*won)))
+        for j, out in enumerate(results):
+            out.search["portfolio"] = {
+                "winner": names[int(winners[j])],
+                "allocator": settings.allocator,
+                "race": {name: float(per_backend[j, b])
+                         for b, name in enumerate(names)},
+                "pulls": {name: int(pulls[j, b])
+                          for b, name in enumerate(names)},
+                "final": float(final_best[j]),
+                "rungs": settings.rungs,
+                "total_evals": settings.total_evals,
+                "devices": n_devices,
+                "fidelity": getattr(settings, "fidelity", "analytic"),
+            }
+            out.search["budget_flow"] = {
+                "enabled": settings.allocator == "bandit"
+                and settings.flatline_waves > 0,
+                "flatlined": bool(flatlined[j]),
+                "released": int(released[j]),
+                "absorbed": int(absorbed[j]),
+                "race_pulls": int(pulls[j].sum()),
+                "pool_leftover": int(spare_pulls),
+                "admitted_wave": int(admit_wave[j]),
+            }
+            if two_fidelity[j] is not None:
+                out.search["two_fidelity"] = two_fidelity[j]
+            out.sa = out.sa._replace(
+                best_per_chain=torch.as_tensor(member_vals[j]))
+        return results
 
     # ---- exhaustive path ------------------------------------------ #
     def _pruned_candidates(self, p: _PreparedJob) -> tuple[np.ndarray, dict]:
@@ -505,8 +1164,8 @@ class ExplorationEngine:
         self, stacked: cost_model.JobParams, cand_rows: list[np.ndarray],
     ) -> list[np.ndarray]:
         """Evaluate per-job candidate lists in shared [J, CHUNK] blocks."""
-        chunk = self.EXHAUSTIVE_CHUNK
         n_max = max(len(c) for c in cand_rows)
+        chunk = min(self.EXHAUSTIVE_CHUNK, n_max)
         outs = []
         for lo in range(0, n_max, chunk):
             # jobs exhaust their lists at different points; pad every lane

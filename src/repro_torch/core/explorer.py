@@ -7,8 +7,13 @@ mapping strategy and PPA metrics.  Mapping exploration (the per-operator
 8-strategy argmin) runs as a sub-process of hardware exploration, exactly as
 in the paper's workflow.
 
-The search method is ``"sa"`` (the paper's simulated annealing, vectorized
-chains) or ``"exhaustive"`` (ground truth over the pruned space).
+The search method is pluggable (``repro_torch.search``): ``"sa"`` (the
+paper's simulated annealing, vectorized chains), ``"genetic"``,
+``"evolution"``, ``"sobol"``, ``"portfolio"`` (a bandit or
+successive-halving race over those four, optionally with the
+measured-fidelity rung), or ``"exhaustive"`` (ground truth over the
+pruned space).  Backend-specific settings go in ``settings=`` (e.g.
+``GASettings``); ``sa_settings`` remains the SA spelling.
 
 Every function runs on the engine it is given, or else on the process-wide
 :func:`~repro_torch.core.engine.default_engine` for ``device`` (``cuda``

@@ -1,11 +1,16 @@
-"""Telemetry of the port: metrics registry, span tracer, kernel profiling.
+"""Telemetry of the port: metrics registry, span tracer, progress bus,
+flight recorder, kernel profiling.
 
-The port's copies of the reference's stdlib-only ``obs/metrics.py`` and
-``obs/trace.py``, and ``obs/profile.py``, the kernel profiling tier whose
+The port's copies of the reference's stdlib-only ``obs/metrics.py``,
+``obs/trace.py``, ``obs/events.py`` (the per-job progress bus the
+portfolio publishes one event per job per wave to) and
+``obs/recorder.py`` (the per-job decision timelines fed the same
+payloads), and ``obs/profile.py``, the kernel profiling tier whose
 :func:`run_microbench` is the measurement half of the calibration tier.
-The reference's ``events``, ``log`` and ``recorder`` are not ported yet.
+The reference's ``log`` is not ported.
 """
 from repro_torch.obs import profile
+from repro_torch.obs.events import ProgressBus, progress_bus
 from repro_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     Counter,
@@ -21,6 +26,13 @@ from repro_torch.obs.profile import (
     record_measurements,
     run_microbench,
     take_measurements,
+)
+from repro_torch.obs.recorder import (
+    TIMELINE_SCHEMA,
+    FlightRecorder,
+    flight_recorder,
+    regret_curve,
+    render_timeline,
 )
 from repro_torch.obs.trace import Span, Tracer, chrome_trace, span, tracer
 
@@ -38,9 +50,16 @@ __all__ = [
     "tracer",
     "span",
     "chrome_trace",
+    "FlightRecorder",
+    "flight_recorder",
+    "render_timeline",
+    "regret_curve",
+    "TIMELINE_SCHEMA",
     "profile",
     "MeasurementRecord",
     "run_microbench",
     "record_measurements",
     "take_measurements",
+    "ProgressBus",
+    "progress_bus",
 ]

@@ -16,7 +16,9 @@ operator bucket, exact in fp32 and fp64 with identical indices, and no
 spills.  selective_scan at every (ct, ci) tile, S in {1, 4, 8, 16},
 ragged T and I, fp32 and bf16 (cp.async and plain staging), at
 chip_smoke.py's tolerances; at least 16 warps a SM at falcon-mamba-7b's
-width.
+width.  Each search backend (Sobol, GA, DE, the bandit and halving
+portfolio) with the kernel as its objective equals the same backend with
+the plain version on the card: winners, values, traces and pulls.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
@@ -373,3 +375,42 @@ def test_selective_scan_falcon_width_warps_per_sm(card, dtype):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = min(g["blocks"], g["blocks_per_sm"] * sms)
     assert g["group"] == 16 and resident * g["threads"] / 32 / sms >= 16
+
+
+# ---- the search backends: kernel against the plain version -----------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method,allocator", [
+    ("sobol", None), ("genetic", None), ("evolution", None),
+    ("portfolio", "bandit"), ("portfolio", "halving")])
+def test_search_backend_kernel_equals_plain(card, method, allocator, dtype):
+    """Each backend on the full design space with the kernel as its
+    objective gives what the same backend gives with the plain version on
+    the card: the same draws, so the same winners, values and pulls."""
+    from repro_torch import search
+    from repro_torch.core import ExplorationEngine, ExploreJob
+    macro = get_macro("vanilla-dcim")
+    jobs = [ExploreJob(macro, wl, 5.0, objective=obj)
+            for wl in (bert_large_workload(),
+                       get_arch("whisper-small").workload(seq=512))
+            for obj in ("ee", "th")]
+    settings = {
+        "sobol": search.SobolSettings(n_points=1600, seed=3),
+        "genetic": search.GASettings(pop=64, generations=24, seed=3),
+        "evolution": search.DESettings(pop=48, generations=32, seed=3),
+        "portfolio": search.PortfolioSettings(
+            total_evals=6400, seed=3, allocator=allocator or "bandit"),
+    }[method]
+    before = ops.job_objective.launches
+    got = ExplorationEngine(device=card, dtype=dtype).run(
+        jobs, method=method, settings=settings)
+    torch.cuda.synchronize()
+    assert ops.job_objective.launches > before
+    want = ExplorationEngine(device=card, dtype=dtype,
+                             evaluator=ref.job_objective_ref).run(
+        jobs, method=method, settings=settings)
+    for g, w in zip(got, want):
+        assert g.config == w.config and g.metrics == w.metrics
+        assert torch.equal(g.sa.best_per_chain, w.sa.best_per_chain)
+        assert torch.equal(g.sa.trace_best, w.sa.trace_best)
+        assert g.search.get("portfolio") == w.search.get("portfolio")
