@@ -71,7 +71,25 @@ of which fails the run when it fails:
    "artifact", both rankings, winner metrics equal to ``evaluate_config``
    under the corrected tech) and unpinned (source "live": the live
    microbench launches ``cim_matmul``, ``flash_attention`` and
-   ``selective_scan``).
+   ``selective_scan``);
+12. service -- an in-process ``DSEServer`` on the card over a fresh
+   store: the 28 Fig. 7 exhaustive jobs POSTed as specs and streamed back
+   over SSE equal phase 4's configs, per-operator strategies and metrics
+   bit for bit, in one dispatch per operator bucket, through the kernel
+   (launch counts reset just before, read just after), arriving bucket by
+   bucket; resubmitted, all 28 come from the store with no dispatch;
+   while the bert-large bandit portfolio races, 3 more P = 8 portfolio
+   jobs are POSTed 50 ms apart, at least one joins the running race, and
+   each equals its solo ``engine.run`` (config, final best, pulls);
+   ``/v1/pareto`` equals ``pareto_explore(engine=...)``, ``/v1/metrics``
+   parses as Prometheus text, the race's timeline is served; then
+   ``python -m repro_torch.service serve`` as a subprocess on the card,
+   ``explore --url --json`` against it (equal to the in-process records)
+   and SIGTERM ("draining", exit 0).  Every wait has a timeout.
+
+Timed and counted ``co_explore`` drives (phases 6, 9, 10, 11) pass
+``engine=``, the bypass of the service, so a repeat times the engine and
+not a store hit; phase 5's Table II runs go through the service.
 
 Phase 7 also counts ``MUFU.RCP`` (IEEE division) in every kernel's SASS;
 phase 8 prints each scan launch's blocks, threads and warps per SM.
@@ -90,6 +108,7 @@ import math
 import os
 import pstats
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -724,6 +743,9 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     ex_energy = by[("bert-large", "st", "ee")].metrics["energy_pj"]
     sync = lambda: torch.cuda.synchronize() if dev.type == "cuda" else None
     paths: list[tuple] = []
+    # every drive passes engine=: the engine is timed and counted, never
+    # the service's store (a repeat would be a store hit)
+    eng = port_core.default_engine(dev)
 
     def key_of(job, method, settings):
         return port_core.job_key(job, method, settings)
@@ -753,7 +775,7 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     for m in SEARCH_METHODS:
         settings = port_search.get_backend(m).default_settings()
         drive = lambda m=m: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
-                                                 method=m, device=dev)
+                                                 method=m, engine=eng)
         r, wall, n = timed(drive)
         check_metrics(m, r)
         ratio = r.metrics["energy_pj"] / ex_energy
@@ -825,7 +847,7 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     hjob = solo_job("portfolio")
     drive = lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
                                          method="portfolio", settings=hs,
-                                         device=dev)
+                                         engine=eng)
     h1, wall, n = timed(drive)
     h2 = drive()
     if h1.config != h2.config or h1.metrics != h2.metrics or \
@@ -839,7 +861,7 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     best = float(h1.sa.best_value)
     for name in hs.backends:
         solo = port_core.co_explore(macro, wl, FIG7_BUDGET_MM2, method=name,
-                                    settings=rung0[name], device=dev)
+                                    settings=rung0[name], engine=eng)
         if best > float(solo.sa.best_value) or \
                 h1.search["portfolio"]["race"][name] > float(
                     solo.sa.best_value):
@@ -855,7 +877,7 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     ms = port_search.PortfolioSettings(fidelity="measured")
     drive = lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
                                          method="portfolio", settings=ms,
-                                         device=dev)
+                                         engine=eng)
     os.environ[cal.CALIBRATION_ENV] = str(artifact)
     cal.reset_calibration_state()
     pinned, wall, n = timed(drive)
@@ -918,12 +940,408 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     return paths
 
 
+def http_json(url: str, payload=None, timeout: float = 60.0):
+    """GET (or POST ``payload`` as JSON) ``url``; the decoded answer."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if payload is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read().decode())
+
+
+def sse_events(url: str, timeout: float) -> list[tuple[str, dict, float]]:
+    """Every ``(event, data, seconds since the request)`` of one SSE
+    stream, up to its ``end`` event (the server closes the stream by
+    ``timeout``; each socket read is bounded too)."""
+    import urllib.request
+    t0 = time.perf_counter()
+    out, event, data = [], None, []
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        for raw in resp:
+            line = raw.decode().rstrip("\r\n")
+            if line.startswith("event:"):
+                event = line[6:].strip()
+            elif line.startswith("data:"):
+                data.append(line[5:].strip())
+            elif not line and data:
+                out.append((event, json.loads("".join(data)),
+                            time.perf_counter() - t0))
+                if event == "end":
+                    break
+                event, data = None, []
+    if not out or out[-1][0] != "end":
+        fail(f"SSE stream {url} ended without an end event")
+    if out[-1][1].get("remaining"):
+        fail(f"SSE stream {url} timed out: {out[-1][1]}")
+    return out
+
+
+def prometheus_families(text: str) -> set[str]:
+    """The families of a Prometheus text exposition; fails on a line that
+    is neither a comment nor ``name{labels} value`` (exemplars allowed)."""
+    sample = re.compile(r"^[A-Za-z_:][\w:]*(\{[^}]*\})?\s+(\S+)(\s+\S+)?$")
+    families = set()
+    for n, line in enumerate(text.splitlines(), 1):
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line.split(" # ", 1)[0])
+        if m is None:
+            fail(f"/v1/metrics line {n} is not Prometheus text: {line!r}")
+        float(m.group(2))
+    return families
+
+
+def wait_for(cond, what: str, timeout: float, step: float = 0.005):
+    """Poll ``cond()`` until it is true; fail after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(step)
+
+
+def phase_service(torch, port_core, ops, dev, jobs, meta, results,
+                  sweep_wall, card) -> int:
+    """Phase 12: the DSE service on the card.  An in-process
+    ``DSEServer`` (so the launch counters can be read) over a fresh store:
+    the 28 Fig. 7 exhaustive jobs over HTTP against phase 4's results, the
+    warm store, continuous batching of portfolio jobs into a running race
+    against their solo runs, pareto / metrics / timeline, then the
+    ``serve`` and ``explore`` CLI as subprocesses and SIGTERM.  Returns
+    the strategy_eval launches of its cold run (12.1)."""
+    import dataclasses
+    import signal
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs as port_obs
+    from repro_torch import search as port_search
+    from repro_torch import service as port_service
+    from repro_torch.service.server import DSEServer, ServerConfig
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="cim-tuner-smoke-service-"))
+    engine = port_core.ExplorationEngine(device=dev)
+    # the default QueueConfig: a POST holds the window open until its
+    # last spec is admitted, so one window takes all 28
+    client = port_service.ServiceClient(
+        engine=engine, store=port_service.ResultStore(str(tmp / "store")))
+    srv = DSEServer(client=client,
+                    config=ServerConfig(port=0, stream_ping_s=1.0)).start()
+    url = srv.url
+    stats = lambda: http_json(f"{url}/v1/stats", timeout=30)
+    # a result as the wire carries it (JSON lists for tuples)
+    ser = lambda r: json.loads(json.dumps(port_service.serialize_result(r)))
+    try:
+        # 12.1 the 28 Fig. 7 jobs, posted as specs, read back over SSE
+        specs = [port_service.job_to_spec(j, "exhaustive") for j in jobs]
+        buckets = {ops_bucket(j) for j in jobs}
+        d0 = stats()["queue"]["dispatches"]
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        posted = http_json(f"{url}/v1/jobs", specs)["jobs"]
+        keys = [s["key"] for s in posted]
+        events = sse_events(f"{url}/v1/stream?keys={','.join(keys)}"
+                            "&timeout=300", timeout=330)
+        http_wall = time.perf_counter() - t0
+        launched = se_launches_now(ops)
+        if launched == 0:
+            fail("the service launched no strategy_eval kernel")
+        dispatches = stats()["queue"]["dispatches"] - d0
+        if dispatches != len(buckets):
+            fail(f"28 Fig. 7 jobs in {dispatches} dispatches, not one per "
+                 f"bucket ({len(buckets)})")
+        index = {k: i for i, k in enumerate(keys)}
+        records, order = {}, []
+        for event, obj, at in events[:-1]:
+            if event != "result" or obj["status"] != "done":
+                fail(f"service stream: {event} {json.dumps(obj)[:300]}")
+            i = index[obj["key"]]
+            records[i] = obj["result"]
+            order.append((i, at))
+        if sorted(records) != list(range(len(jobs))):
+            fail("the service stream missed a job")
+        for i, r in enumerate(results):
+            want = ser(r)
+            got = records[i]
+            for field in ("config", "per_op_strategy", "metrics"):
+                if got[field] != want[field]:
+                    fail(f"service {meta[i]} {field}: {got[field]} vs phase "
+                         f"4's {want[field]}")
+        # the stream arrives bucket by bucket, each at its own time
+        seq = [ops_bucket(jobs[i]) for i, _ in order]
+        runs = [b for n, b in enumerate(seq) if n == 0 or seq[n - 1] != b]
+        if len(runs) != len(buckets):
+            fail(f"service results interleave buckets: {seq}")
+        done_at = {b: max(at for i, at in order if ops_bucket(jobs[i]) == b)
+                   for b in buckets}
+        print("[service] 12.1 completion order: " + ", ".join(
+            f"P={b} ({seq.count(b)} jobs, last at {done_at[b]:.4f} s)"
+            for b in runs))
+        print(f"[service] 12.1 28 Fig. 7 jobs over HTTP: {http_wall:.4f} s "
+              f"(phase 4 in process, median: {sweep_wall:.4f} s), "
+              f"{dispatches} dispatches (one per bucket, window "
+              f"{client.queue.config.batch_window_s} s), {launched} "
+              f"strategy_eval launches; configs, per-operator strategies "
+              f"and metrics equal phase 4's bit for bit; {card}",
+              flush=True)
+
+        # 12.1 again on the emptied store, traced: the device's busy time
+        # (torch.profiler) and the service's own spans (the POST, the
+        # window, each bucket's engine.run, persisting, the stream)
+        client.store.clear()
+        d1 = stats()["queue"]["dispatches"]
+        port_obs.tracer().clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            t0 = time.perf_counter()
+            keys2 = [s["key"] for s in
+                     http_json(f"{url}/v1/jobs", specs)["jobs"]]
+            events2 = sse_events(f"{url}/v1/stream?keys={','.join(keys2)}"
+                                 "&timeout=300", timeout=330)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        if keys2 != keys or stats()["queue"]["dispatches"] - d1 != dispatches:
+            fail("the traced repeat of 12.1 did not run as the first did")
+        for event, obj, _ in events2[:-1]:
+            got, want = obj["result"], records[index[obj["key"]]]
+            if any(got[f] != want[f]
+                   for f in ("config", "per_op_strategy", "metrics")):
+                fail(f"traced repeat differs for {obj['key']}")
+        busy_us = sum(e.self_device_time_total
+                      for e in trace.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        spans = port_obs.tracer().events()
+        span = lambda name, **a: [e for e in spans if e["name"] == name
+                                  and all(e["args"].get(k) == v
+                                          for k, v in a.items())]
+        post = span("server.request", endpoint="/v1/jobs", method="POST")
+        batch = span("queue.batch")
+        runs = span("engine.run")
+        sse = span("server.request", endpoint="/v1/stream")
+        if (len(post), len(batch), len(runs), len(sse)) != \
+                (1, 1, len(buckets), 1):
+            fail(f"12.1 spans: {len(post)} POST, {len(batch)} batches, "
+                 f"{len(runs)} engine runs, {len(sse)} streams")
+        end = lambda e: e["ts"] + e["dur"]
+        run_ms = [e["dur"] / 1e3 for e in sorted(runs, key=lambda e: e["ts"])]
+        parts = {
+            "POST (parse, key, probe the store, enqueue)": post[0]["dur"],
+            "POST end to dispatch (window)": batch[0]["ts"] - end(post[0]),
+            "engine.run, " + " + ".join(f"{t:.2f}" for t in run_ms) + " ms":
+                sum(e["dur"] for e in runs),
+            "rest of the dispatch (bucket, persist, resolve)":
+                batch[0]["dur"] - sum(e["dur"] for e in runs),
+            "dispatch end to the stream's end": end(sse[0]) - end(batch[0]),
+        }
+        parts["client and HTTP, the rest of the wall"] = \
+            traced_wall * 1e6 - (end(sse[0]) - post[0]["ts"])
+        print(f"[service] 12.1 traced repeat: wall {traced_wall:.4f} s, "
+              f"device busy {busy_us / 1e3:.3f} ms: busy share "
+              + (f"{busy_us * 1e-6 / traced_wall:.4f}" if busy_us
+                 else "not measured (no device time in the trace)")
+              + "; spans (ms): " + "; ".join(
+                  f"{k} {v / 1e3:.3f}" for k, v in parts.items())
+              + f"; {card}", flush=True)
+
+        # 12.2 the same 28 specs again: every job from the store
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        warm = http_json(f"{url}/v1/jobs", specs)["jobs"]
+        warm_wall = time.perf_counter() - t0
+        if any(s["status"] != "done" or s["source"] != "store"
+               for s in warm):
+            fail("a resubmitted job was not answered from the store: "
+                 + json.dumps([(s["status"], s.get("source"))
+                               for s in warm]))
+        if any(s["result"][f] != records[i][f] for i, s in enumerate(warm)
+               for f in ("config", "per_op_strategy", "metrics")):
+            fail("store answers differ from the cold run's records")
+        if stats()["queue"]["dispatches"] - d1 != dispatches or \
+                se_launches_now(ops):
+            fail("the warm resubmission reached the engine")
+        print(f"[service] 12.2 warm store: 28 of 28 from the store in "
+              f"{warm_wall:.4f} s, 0 new dispatches, 0 launches; {card}",
+              flush=True)
+
+        # 12.3 continuous batching: late portfolio jobs join a running race
+        ps = port_search.PortfolioSettings()
+        lead = meta.index(("bert-large", "st", "ee"))
+        late = [i for i, m in enumerate(meta)
+                if m[0] != "bert-large" and m[1:] == ("st", "ee")
+                and ops_bucket(jobs[i]) == ops_bucket(jobs[lead])][:3]
+        if len(late) != 3:
+            fail(f"fewer than 3 P={ops_bucket(jobs[lead])} Fig. 7 jobs")
+        solo = {i: engine.run([jobs[i]], method="portfolio",
+                              settings=ps)[0] for i in [lead, *late]}
+        spec = lambda i: port_service.job_to_spec(jobs[i], "portfolio",
+                                                  settings=ps)
+        admitted0 = stats()["scheduler"]["admitted"]
+        t0 = time.perf_counter()
+        race_keys = [http_json(f"{url}/v1/jobs", [spec(lead)])
+                     ["jobs"][0]["key"]]
+        wait_for(lambda: client.queue.stats_snapshot()["scheduler"]
+                 ["inflight_groups"] == 1, "the race to start", 30)
+        for i in late:
+            race_keys.append(http_json(f"{url}/v1/jobs", [spec(i)])
+                             ["jobs"][0]["key"])
+            time.sleep(0.05)
+        raced = {obj["key"]: obj for event, obj, _ in sse_events(
+            f"{url}/v1/stream?keys={','.join(race_keys)}&timeout=300",
+            timeout=330) if event == "result"}
+        race_wall = time.perf_counter() - t0
+        admitted = stats()["scheduler"]["admitted"] - admitted0
+        if admitted < 1:
+            fail("no late portfolio job was admitted into the running race")
+        for i, key in zip([lead, *late], race_keys):
+            got, want = raced[key]["result"], ser(solo[i])
+            for field in ("config", "metrics"):
+                if got[field] != want[field]:
+                    fail(f"raced {meta[i]} {field} differs from its solo "
+                         f"run: {got[field]} vs {want[field]}")
+            if got["search"]["portfolio"] != want["search"]["portfolio"]:
+                fail(f"raced {meta[i]} portfolio (winner, best, pulls) "
+                     f"differs from its solo run: "
+                     f"{got['search']['portfolio']} vs "
+                     f"{want['search']['portfolio']}")
+        print(f"[service] 12.3 continuous batching: bert-large bandit "
+              f"portfolio + 3 late P={ops_bucket(jobs[lead])} jobs "
+              f"({', '.join(meta[i][0] for i in late)}), {admitted} "
+              f"admitted into the running race; wall {race_wall:.4f} s; "
+              f"each equals its solo engine= run (config, final best, "
+              f"pulls); {card}", flush=True)
+
+        # 12.4 pareto, metrics, timeline
+        macro = port_core.get_macro("vanilla-dcim")
+        wl = port_core.bert_large_workload()
+        fronts = [obj for event, obj, _ in sse_events(
+            f"{url}/v1/pareto?macro=vanilla-dcim&workloads=bert-large"
+            f"&area_budget_mm2={FIG7_BUDGET_MM2}&timeout=120", timeout=150)
+            if event == "frontier"]
+        want = port_core.pareto_explore(macro, wl, FIG7_BUDGET_MM2,
+                                        engine=engine)
+        got = fronts[0]["frontier"] if len(fronts) == 1 else None
+        if got != [{"config": dataclasses.asdict(p["config"]),
+                    "gops": p["gops"], "tops_w": p["tops_w"]}
+                   for p in want]:
+            fail(f"/v1/pareto frontier differs from pareto_explore's: "
+                 f"{json.dumps(fronts)[:400]}")
+        import urllib.request
+        with urllib.request.urlopen(f"{url}/v1/metrics", timeout=30) as resp:
+            families = prometheus_families(resp.read().decode())
+        need = {"cim_queue_submitted_total", "cim_queue_dispatches_total",
+                "cim_engine_jobs_total", "cim_sched_admissions_total",
+                "cim_http_requests_total"}
+        if len(families) < 12 or not need <= families:
+            fail(f"/v1/metrics families: {sorted(families)}")
+        tl = http_json(f"{url}/v1/jobs/{race_keys[0]}/timeline")["timeline"]
+        if tl["method"] != "portfolio" or not tl["events"]:
+            fail(f"portfolio timeline: {json.dumps(tl)[:300]}")
+        t_h = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            health = http_json(f"{url}/healthz", timeout=10)
+            t_h.append(time.perf_counter() - t1)
+        if health.get("port") != "repro_torch" or \
+                health.get("device_type") != dev.type:
+            fail(f"/healthz: {health}")
+        print(f"[service] 12.4 /v1/pareto: {len(got)} frontier points equal "
+              f"pareto_explore(engine=) bit for bit; /v1/metrics "
+              f"{len(families)} families parse; timeline of the race: "
+              f"{len(tl['events'])} events; /healthz round trip "
+              f"{statistics.median(t_h) * 1e3:.3f} ms (median of 5), device "
+              f"{health['device']}; {card}", flush=True)
+    finally:
+        srv.shutdown(drain=False)
+        client.queue.close(timeout=60)
+
+    # 12.5 the CLI: serve on the card, explore against it, SIGTERM
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CIM_TUNER_RESULT_STORE=str(tmp / "serve-store"))
+    env.pop("CIM_TUNER_SERVICE_URL", None)
+    port_file = tmp / "port.txt"
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.service", "serve", "--port",
+         "0", "--port-file", str(port_file), "--device", dev.type],
+        cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_for(lambda: port_file.exists() and port_file.read_text()
+                 or server.poll() is not None, "serve to bind", 120, 0.05)
+        if server.poll() is not None:
+            fail(f"serve exited {server.returncode}:\n"
+                 f"{server.communicate(timeout=30)[0]}")
+        cli_url = f"http://127.0.0.1:{port_file.read_text().strip()}"
+
+        def healthy():
+            try:
+                return http_json(f"{cli_url}/healthz", timeout=5)
+            except OSError:
+                return None
+        wait_for(healthy, "serve's first healthy answer", 120, 0.05)
+        first_healthy = time.perf_counter() - t0
+        if healthy().get("device_type") != dev.type:
+            fail(f"serve is not on {dev.type}: {healthy()}")
+        pick = [meta.index(("bert-large", "st", o)) for o in ("ee", "th")]
+        jobs_file = tmp / "jobs.json"
+        jobs_file.write_text(json.dumps([specs[i] for i in pick]))
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.service", "explore",
+             str(jobs_file), "--url", cli_url, "--json", "--device",
+             dev.type], cwd=ROOT,
+            env=dict(env, CIM_TUNER_RESULT_STORE=str(tmp / "client-store")),
+            capture_output=True, text=True, timeout=300)
+        explore_wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            fail(f"explore --url exited {proc.returncode}:\n{proc.stderr}")
+        out = [json.loads(line) for line in proc.stdout.splitlines()]
+        if len(out) != 2 or any(
+                rec["result"][f] != records[i][f] for rec, i in zip(out, pick)
+                for f in ("config", "per_op_strategy", "metrics")):
+            fail(f"explore --json output differs from 12.1's records:\n"
+                 f"{proc.stdout[:600]}")
+        t1 = time.perf_counter()
+        server.send_signal(signal.SIGTERM)
+        served, _ = server.communicate(timeout=30)
+        stop_wall = time.perf_counter() - t1
+        if server.returncode != 0 or "draining" not in served:
+            fail(f"serve on SIGTERM: exit {server.returncode}:\n{served}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate(timeout=30)
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the client's own clock starts once it is built: the rest of the
+    # wall is the client process's start (imports, /healthz)
+    in_client = max(rec["elapsed_s"] for rec in out)
+    print(f"[service] 12.5 CLI: serve's first healthy answer "
+          f"{first_healthy:.3f} s after start; explore --url --json, 2 "
+          f"bert-large jobs, {explore_wall:.3f} s ({in_client:.3f} s after "
+          f"the client was built, the server's first dispatch in its "
+          f"process included), equal to 12.1's records; SIGTERM: "
+          f"\"draining\", exit 0 in {stop_wall:.3f} s; phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launched
+
+
 def main() -> None:
+    import tempfile
+
     import torch
 
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA card: torch.cuda.is_available() is false")
+    # the service behind co_explore keeps its results in a store of this
+    # run's own, removed at the end
+    store_root = tempfile.mkdtemp(prefix="cim-tuner-smoke-store-")
+    os.environ["CIM_TUNER_RESULT_STORE"] = store_root
+    os.environ.pop("CIM_TUNER_SERVICE_URL", None)
     try:
         from repro_torch import core as port_core
         from repro_torch.core import cost_model
@@ -1199,12 +1617,15 @@ def main() -> None:
               f"{th.config.as_tuple()} x{g_th:.2f}")
 
     # ---- 6. SA through co_explore's defaults -----------------------------
+    # timed and counted drives pass engine= (co_explore's documented
+    # bypass of the service), so a repeat runs the engine, not the store
+    direct = port_core.default_engine("cuda")
     ops.job_objective.launches = 0
     ops.strategy_eval.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sa = port_core.co_explore(port_core.get_macro("vanilla-dcim"), wl,
-                              FIG7_BUDGET_MM2)
+                              FIG7_BUDGET_MM2, engine=direct)
     torch.cuda.synchronize()
     sa_s = time.perf_counter() - t0
     sa_launches = ops.job_objective.launches + ops.strategy_eval.launches
@@ -1446,7 +1867,8 @@ def main() -> None:
     ops.strategy_eval.launches = 0
     torch.cuda.synchronize()
     calibrated = port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
-                                      method="exhaustive", tech=cm.tech)
+                                      method="exhaustive", tech=cm.tech,
+                                      engine=direct)
     torch.cuda.synchronize()
     explore_launches = ops.job_objective.launches + ops.strategy_eval.launches
     if explore_launches == 0:
@@ -1491,13 +1913,14 @@ def main() -> None:
     for name, drive, timed_launches in (
             ("Fig. 7 sweep", lambda: engine.run(jobs, method="exhaustive"),
              main_launches),
-            ("SA", lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2),
+            ("SA", lambda: port_core.co_explore(macro, wl, FIG7_BUDGET_MM2,
+                                                engine=direct),
              sa_launches),
             ("microbench", lambda: obs_profile.run_microbench(
                 kernels=("strategy_eval",)), cal_launches["strategy_eval"]),
             ("calibrated job", lambda: port_core.co_explore(
                 macro, wl, FIG7_BUDGET_MM2, method="exhaustive",
-                tech=cm.tech), explore_launches),
+                tech=cm.tech, engine=direct), explore_launches),
             *search_paths):
         if name == search_paths[0][0]:
             fp64_shapes = set(shapes.counts)      # phases 4, 6 and 9
@@ -1524,6 +1947,11 @@ def main() -> None:
               f"over {len(counts)} shapes, launches x graph time (fp32) = "
               f"{spent:.4f} ms of device time; {card}", flush=True)
 
+    # ---- 12. the DSE service on the card ---------------------------------
+    service_launches = phase_service(torch, port_core, ops, dev, jobs, meta,
+                                     results, wall, card)
+    shutil.rmtree(store_root, ignore_errors=True)
+
     t32 = timing["float32"]
     new_lines = []
     for name, (source, replaces) in NEW_KERNELS.items():
@@ -1538,7 +1966,9 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": se_launches,
+        # the paths phase 10 recorded, and the service's cold run (12.1)
+        "launches": se_launches + service_launches,
+        "service_launches": service_launches,
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
         "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": None,

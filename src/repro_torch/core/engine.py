@@ -31,8 +31,11 @@ semantics (the reference's x64 mode).
 
 Identical jobs inside one ``run()`` (same canonical :func:`job_key`)
 evaluate once and fan the result out.  ``co_explore`` /
-``co_explore_macros`` / ``pareto_explore`` (``core/explorer.py``) call this
-engine directly.
+``co_explore_macros`` / ``pareto_explore`` (``core/explorer.py``) reach
+this engine through the DSE service (``repro_torch.service``), whose
+queue groups submissions by :meth:`ExplorationEngine.bucket_key` and
+dispatches one ``run()`` per bucket; given ``engine=``, they call it
+directly.
 """
 from __future__ import annotations
 
@@ -75,6 +78,16 @@ __all__ = [
 # telemetry families (process-wide, the reference's names)
 # --------------------------------------------------------------------- #
 _REG = obs.registry()
+_LOG = obs.get_logger("engine")
+_M_JOBS = _REG.counter(
+    "cim_engine_jobs_total", "Jobs submitted to ExplorationEngine.run")
+_M_BATCHES = _REG.counter(
+    "cim_engine_batches_total", "Batched evaluator dispatches")
+_M_DEDUP = _REG.counter(
+    "cim_engine_dedup_hits_total",
+    "In-batch duplicate jobs folded into one evaluation")
+_M_RUN_S = _REG.histogram(
+    "cim_engine_run_seconds", "Wall-clock of ExplorationEngine.run calls")
 _M_PULLS = _REG.counter(
     "cim_search_pulls_total",
     "Portfolio pulls granted per backend by the budget allocator",
@@ -355,7 +368,22 @@ class ExplorationEngine:
         self.sa_settings = sa_settings
         self.penalty_scale = float(penalty_scale)
         self.evaluator = evaluator or ops.job_objective
-        self.stats = {"jobs": 0, "batches": 0, "dedup_hits": 0}
+        # per-instance counters mirrored into the process-wide registry
+        # (the /v1/metrics families above); the service's worker thread
+        # and callers on other threads may bump them concurrently
+        self.stats = obs.StatCounters({
+            "jobs": _M_JOBS.labels(),
+            "batches": _M_BATCHES.labels(),
+            "dedup_hits": _M_DEDUP.labels(),
+        })
+
+    def stats_snapshot(self) -> dict:
+        """JSON-able counter view for service introspection
+        (``/v1/stats``): the run counters and the device and dtype the
+        engine works in (the port has no executable cache to report)."""
+        return {**self.stats.snapshot(),
+                "device": device_name(self.device),
+                "dtype": str(self.dtype)}
 
     # ------------------------------------------------------------- #
     # public API
@@ -442,13 +470,13 @@ class ExplorationEngine:
         unique: list[int] = []
         for i, k in enumerate(keys):
             if k in first_of:
-                self.stats["dedup_hits"] += 1
+                self.stats.bump("dedup_hits")
             else:
                 first_of[k] = i
                 unique.append(i)
 
         prepared = {i: self._prepare(jobs[i]) for i in unique}
-        self.stats["jobs"] += len(jobs)
+        self.stats.bump("jobs", len(jobs))
 
         results: list[ExploreResult | None] = [None] * len(jobs)
         admitted_results: list[ExploreResult] = []
@@ -458,25 +486,30 @@ class ExplorationEngine:
             groups.setdefault(key, []).append(i)
         if admit is not None:
             self._check_admittable(groups)
-        for (bucket, group_settings), idxs in groups.items():
-            m = bucket[0]
-            batch = [prepared[i] for i in idxs]
-            self.stats["batches"] += 1
-            if m == "exhaustive":
-                outs = self._run_exhaustive_batch(batch)
-            elif get_backend(m).composite:
-                outs = self._run_portfolio_batch(
-                    batch, group_settings, job_keys=[keys[i] for i in idxs],
-                    admit=None if admit is None else
-                    self._wrap_admit(admit, bucket, m))
-                # rung-admitted jobs ride behind the initial batch
-                admitted_results = list(outs[len(idxs):])
-                outs = outs[:len(idxs)]
-            else:
-                outs = self._run_search_batch(batch, get_backend(m),
-                                              group_settings)
-            for i, out in zip(idxs, outs):
-                results[i] = out
+        with obs.span("engine.run", histogram=_M_RUN_S,
+                      jobs=len(jobs), unique=len(unique)):
+            for (bucket, group_settings), idxs in groups.items():
+                m = bucket[0]
+                batch = [prepared[i] for i in idxs]
+                self.stats.bump("batches")
+                _LOG.debug("batch method=%s jobs=%d bucket=%s",
+                           m, len(idxs), bucket)
+                if m == "exhaustive":
+                    outs = self._run_exhaustive_batch(batch)
+                elif get_backend(m).composite:
+                    outs = self._run_portfolio_batch(
+                        batch, group_settings,
+                        job_keys=[keys[i] for i in idxs],
+                        admit=None if admit is None else
+                        self._wrap_admit(admit, bucket, m))
+                    # rung-admitted jobs ride behind the initial batch
+                    admitted_results = list(outs[len(idxs):])
+                    outs = outs[:len(idxs)]
+                else:
+                    outs = self._run_search_batch(batch, get_backend(m),
+                                                  group_settings)
+                for i, out in zip(idxs, outs):
+                    results[i] = out
         fanout: dict[str, int] = {}
         for i, k in enumerate(keys):
             if results[i] is None:
@@ -529,6 +562,14 @@ class ExplorationEngine:
             mat=mat, lens=lens,
         )
 
+    def bucket_key(self, job: ExploreJob, method: str | None = None) -> tuple:
+        """Batch signature of a job: jobs sharing a bucket (and their
+        effective settings) run in one batched evaluator loop, so the
+        service queue groups submissions by this and dispatches each
+        group as exactly one ``run()``."""
+        return self._bucket_key(self._prepare(job),
+                                method or job.search_method)
+
     @staticmethod
     def _bucket_key(p: _PreparedJob, method: str) -> tuple:
         return (method, p.ops_pad)
@@ -575,7 +616,7 @@ class ExplorationEngine:
                     raise ValueError(
                         f"admitted job bucket {got} does not match the "
                         f"in-flight group bucket {bucket}")
-                self.stats["jobs"] += 1
+                self.stats.bump("jobs")
                 out.append((key, p))
             return out
         return engine_admit

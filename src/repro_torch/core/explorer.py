@@ -15,9 +15,20 @@ measured-fidelity rung), or ``"exhaustive"`` (ground truth over the
 pruned space).  Backend-specific settings go in ``settings=`` (e.g.
 ``GASettings``); ``sa_settings`` remains the SA spelling.
 
-Every function runs on the engine it is given, or else on the process-wide
-:func:`~repro_torch.core.engine.default_engine` for ``device`` (``cuda``
-unless the caller asks for ``"cpu"``) and ``dtype``.
+``co_explore``, ``co_explore_macros`` and ``pareto_explore`` are thin
+synchronous clients of the process-wide DSE service
+(``repro_torch.service.default_service(device, dtype)``, ``cuda`` unless
+the caller asks for ``"cpu"``): a call submits a batch, so repeated and
+interleaved callers share one engine, identical in-flight submissions
+dedup onto one evaluation, and repeated queries across processes hit the
+persistent result store instead of re-running.  Passing ``engine=``
+bypasses the service and dispatches directly on that engine (no queue,
+no store) -- the escape hatch for benchmarking and for callers that
+manage their own batches.  A result answered from the result store
+is deserialized and carries ``.sa = None``, so whether ``.sa`` is set
+depends on the store: read the search diagnostics from an ``engine=``
+run.
+``evaluate_config`` is one evaluator call on ``device``.
 """
 from __future__ import annotations
 
@@ -31,7 +42,6 @@ from repro_torch.core.engine import (
     ExplorationEngine,
     ExploreJob,
     ExploreResult,
-    default_engine,
     resolve_device,
 )
 from repro_torch.core.ir import Workload
@@ -51,9 +61,25 @@ __all__ = [
 ]
 
 
-def _engine(engine: ExplorationEngine | None, device,
-            dtype: torch.dtype) -> ExplorationEngine:
-    return engine if engine is not None else default_engine(device, dtype)
+def _run_jobs(
+    jobs: list[ExploreJob],
+    method: str,
+    sa_settings: SASettings | None,
+    engine: ExplorationEngine | None,
+    settings,
+    device,
+    dtype: torch.dtype,
+) -> list[ExploreResult]:
+    """Dispatch a job list: direct engine call when the caller supplied an
+    engine, otherwise through the process-wide service for ``device`` and
+    ``dtype`` (micro-batching, in-flight dedup, persistent result store)."""
+    if settings is None and method == "sa":
+        settings = sa_settings
+    if engine is not None:
+        return engine.run(jobs, method=method, settings=settings)
+    from repro_torch.service.client import default_service
+    return default_service(device, dtype).explore(jobs, method=method,
+                                                  settings=settings)
 
 
 def co_explore(
@@ -74,7 +100,8 @@ def co_explore(
     device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> ExploreResult:
-    """Single-job co-exploration (a batch of one on the engine).
+    """Single-job co-exploration (a batch of one through the service, or
+    on ``engine``).
 
     ``method`` accepts a registered search backend name or
     ``"exhaustive"``; ``settings`` carries that backend's settings object
@@ -89,10 +116,8 @@ def co_explore(
         objective=objective, strategy_set=strategy_set, bw=bw, tech=tech,
         space=space, merge_ops=merge_ops, search_method=method,
     )
-    if settings is None and method == "sa":
-        settings = sa_settings
-    return _engine(engine, device, dtype).run(
-        [job], method=method, settings=settings)[0]
+    return _run_jobs([job], method, sa_settings, engine, settings, device,
+                     dtype)[0]
 
 
 def co_explore_macros(
@@ -108,7 +133,8 @@ def co_explore_macros(
     *family* from a library under the same budget/objective.
 
     The per-macro jobs run as ONE engine batch (macro constants are per-job
-    tensors).  Returns (best result, all per-macro results)."""
+    tensors), through the service unless ``engine`` is given.  Returns
+    (best result, all per-macro results)."""
     objective = kw.get("objective", "ee")
     method = kw.pop("method", "sa")
     sa_settings = kw.pop("sa_settings", SASettings())
@@ -123,10 +149,8 @@ def co_explore_macros(
                    search_method=method, **kw)
         for m in macros
     ]
-    if settings is None and method == "sa":
-        settings = sa_settings
-    results = _engine(engine, device, dtype).run(
-        jobs, method=method, settings=settings)
+    results = _run_jobs(jobs, method, sa_settings, engine, settings, device,
+                        dtype)
     key = (lambda r: -r.metrics["tops_w"]) if objective == "ee" else \
         (lambda r: -r.metrics["gops"]) if objective == "th" else \
         (lambda r: r.metrics["latency_s"] * r.metrics["energy_pj"])
@@ -152,7 +176,8 @@ def pareto_explore(
 
     Each metric gets its own best mapping (the per-operator argmin is
     objective-dependent), so this is a two-job engine batch -- "th" and
-    "ee" sweep the same candidate list."""
+    "ee" sweep the same candidate list, as two ``values`` submissions to
+    the service unless ``engine`` is given."""
     space = space or DesignSpace()
     tech = resolve_tech(tech)
     cands, _ = prune_space(space, macro, area_budget_mm2, bw, tech)
@@ -168,8 +193,13 @@ def pareto_explore(
     ]
     # pruned candidates respect budget+bandwidth, so the job objective
     # degenerates to exactly total latency ("th") / total energy ("ee")
-    lat, en = _engine(engine, device, dtype).candidate_values(
-        jobs, [rows, rows])
+    if engine is not None:
+        lat, en = engine.candidate_values(jobs, [rows, rows])
+    else:
+        from repro_torch.service.client import default_service
+        svc = default_service(device, dtype)
+        futures = [svc.submit_values(j, rows) for j in jobs]
+        lat, en = (np.asarray(f.result()) for f in futures)
     return pareto_frontier_from_values(cands, lat, en, workload, macro, bw)
 
 

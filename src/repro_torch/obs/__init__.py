@@ -5,12 +5,14 @@ The port's copies of the reference's stdlib-only ``obs/metrics.py``,
 ``obs/trace.py``, ``obs/events.py`` (the per-job progress bus the
 portfolio publishes one event per job per wave to) and
 ``obs/recorder.py`` (the per-job decision timelines fed the same
-payloads), and ``obs/profile.py``, the kernel profiling tier whose
-:func:`run_microbench` is the measurement half of the calibration tier.
-The reference's ``log`` is not ported.
+payloads) and ``obs/log.py`` (the ``CIM_TUNER_LOG`` logger hierarchy,
+rooted at ``repro_torch``), and ``obs/profile.py``, the kernel profiling
+tier whose :func:`run_microbench` is the measurement half of the
+calibration tier.
 """
 from repro_torch.obs import profile
 from repro_torch.obs.events import ProgressBus, progress_bus
+from repro_torch.obs.log import configure_logging, get_logger
 from repro_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     Counter,
@@ -60,6 +62,8 @@ __all__ = [
     "run_microbench",
     "record_measurements",
     "take_measurements",
+    "configure_logging",
+    "get_logger",
     "ProgressBus",
     "progress_bus",
 ]

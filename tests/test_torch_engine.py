@@ -128,7 +128,7 @@ def test_sa_within_one_percent_of_exhaustive(objective):
     kw = dict(macro=port.get_macro("tpdcim-macro"),
               workload=port.bert_large_workload(), area_budget_mm2=2.23,
               objective=objective, space=port.DesignSpace(**SMALL),
-              device="cpu")
+              device="cpu", engine=port.ExplorationEngine(device="cpu"))
     ex = port.co_explore(method="exhaustive", **kw)
     sa = port.co_explore(method="sa", sa_settings=port.SASettings(
         n_chains=24, n_steps=120, seed=1), **kw)

@@ -18,7 +18,9 @@ ragged T and I, fp32 and bf16 (cp.async and plain staging), at
 chip_smoke.py's tolerances; at least 16 warps a SM at falcon-mamba-7b's
 width.  Each search backend (Sobol, GA, DE, the bandit and halving
 portfolio) with the kernel as its objective equals the same backend with
-the plain version on the card: winners, values, traces and pulls.
+the plain version on the card: winners, values, traces and pulls.  The
+DSE service's queue on the card (its worker thread launching the kernel)
+gives the 28 Fig. 7 exhaustive jobs exactly as one engine run does.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
@@ -414,3 +416,38 @@ def test_search_backend_kernel_equals_plain(card, method, allocator, dtype):
         assert torch.equal(g.sa.best_per_chain, w.sa.best_per_chain)
         assert torch.equal(g.sa.trace_best, w.sa.trace_best)
         assert g.search.get("portfolio") == w.search.get("portfolio")
+
+
+# ---- the DSE service's queue on the card -----------------------------------
+
+FIG7 = ("bert-large", "yi-6b", "gemma-7b", "falcon-mamba-7b",
+        "granite-moe-3b-a800m", "mixtral-8x7b", "whisper-small")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_service_queue_equals_engine_on_card(card, dtype, tmp_path):
+    """The 28 Fig. 7 exhaustive jobs through an in-process JobQueue on the
+    card (its worker thread launches the kernel) equal one engine run bit
+    for bit, in one dispatch per operator bucket."""
+    from repro_torch.core import ExplorationEngine, ExploreJob
+    from repro_torch.service import JobQueue, QueueConfig, ResultStore
+    macro = get_macro("vanilla-dcim")
+    jobs = [ExploreJob(macro, bert_large_workload() if n == "bert-large"
+                       else get_arch(n).workload(seq=512), 5.0,
+                       objective=obj, strategy_set=sset)
+            for n in FIG7 for sset in ("so", "st") for obj in ("ee", "th")]
+    want = ExplorationEngine(device=card, dtype=dtype).run(
+        jobs, method="exhaustive")
+    before = ops.job_objective.launches
+    with JobQueue(engine=ExplorationEngine(device=card, dtype=dtype),
+                  store=ResultStore(str(tmp_path)),
+                  config=QueueConfig(batch_window_s=0.2)) as q:
+        futs = q.submit_many(jobs, method="exhaustive")
+        got = [f.result(timeout=600) for f in futs]
+        assert q.stats["dispatches"] == 2
+    assert ops.job_objective.launches > before
+    for g, w in zip(got, want):
+        assert g.config == w.config
+        assert g.per_op_strategy == w.per_op_strategy
+        assert g.metrics == w.metrics
+        assert g.search["device"] == torch.cuda.get_device_name(card)

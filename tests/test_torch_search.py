@@ -151,9 +151,12 @@ def test_exhaustive_winner_equals_the_reference(objective):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("method", METHODS)
 def test_backend_matches_exhaustive_on_small_space(method, dtype):
-    ex = port.co_explore(method="exhaustive", dtype=dtype, **_kw())
+    # on an engine, not the service: a store or dedup answer has no
+    # ``.sa`` diagnostics, and this test reads them
+    engine = port.ExplorationEngine(device="cpu", dtype=dtype)
+    ex = port.co_explore(method="exhaustive", engine=engine, **_kw())
     got = port.co_explore(method=method, settings=PARITY_SETTINGS[method],
-                          dtype=dtype, **_kw())
+                          engine=engine, **_kw())
     # adaptive backends within 1 % of the exhaustive optimum; the
     # non-adaptive Sobol baseline within 10 % (tests/test_search.py)
     tol = 1.10 if method == "sobol" else 1.01
