@@ -85,7 +85,24 @@ of which fails the run when it fails:
    parses as Prometheus text, the race's timeline is served; then
    ``python -m repro_torch.service serve`` as a subprocess on the card,
    ``explore --url --json`` against it (equal to the in-process records)
-   and SIGTERM ("draining", exit 0).  Every wait has a timeout.
+   and SIGTERM ("draining", exit 0).  Every wait has a timeout;
+13. verify and scale (run before phase 10, which records its launches) --
+   the kernel's per-operator strategies of phase 4's 28 winners compiled
+   by ``compile_schedule`` (operators over ``MAX_SETS`` counted per job):
+   every schedule's ten sums equal ``matmul_cost`` in fp64 on the card,
+   every ``simulate_schedule`` latency on the card (overlap as the cost
+   model sets it) lies inside ``analytic_latency_bounds``, and each job's
+   simulation gap (sum of count x simulated latency over the kernel's total
+   latency) is printed; ``compile_trace`` + ``replay_trace`` equal ``x @ w``
+   under all 8 strategies; the Fig. 1 ``buffer_sweep`` and its argmin;
+   ``simulated_annealing`` with a kernel objective (``ops.objective_fn``)
+   at phase 6's settings within 1 % of phase 4's bert-large optimum and
+   ``exhaustive_search`` equal to phase 4's winner and value bit for bit;
+   ``distributed_co_explore_jobs`` over the 28 jobs on 1 and 4 slots of
+   the card (monotone traces, launches = slots x (1 + rounds x
+   sync_every), ratios to phase 4's optima, walls), a checkpoint after
+   round 4 resumed to the end equal to the uninterrupted run, and an
+   elastic resume from 4 slots to 1.
 
 Timed and counted ``co_explore`` drives (phases 6, 9, 10, 11) pass
 ``engine=``, the bypass of the service, so a repeat times the engine and
@@ -214,6 +231,46 @@ def cuda_time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced_busy(torch, fn, sync) -> tuple[float, float]:
+    """One run of ``fn`` under torch.profiler: the device's busy time (µs,
+    the sum of its kernels' self time) and the traced run's wall (s).  On
+    a card only the device's activity is traced: the host's operator
+    events of a search path (hundreds a step) take longer to collect than
+    the run itself."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as trace:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in trace.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us, wall
+
+
+def busy_text(busy_us: float, wall: float) -> str:
+    return (f"device busy {busy_us / 1e3:.3f} ms of {wall:.4f} s traced "
+            "wall: busy share " + (f"{busy_us * 1e-6 / wall:.4f}" if busy_us
+                                   else "not measured (no device time in "
+                                   "the trace)") + " (torch.profiler)")
+
+
+def job_of_params(cost_model, ops_t, params):
+    """The batched ``JobParams`` a packed parameter block [J, NPARAM]
+    came from (the inverse of ``strategy_eval.pack_params``; the bus
+    width rides in the candidates, so ``bw`` is left out)."""
+    nm, nt = (len(cost_model.MacroParams._fields),
+              len(cost_model.TechParams._fields))
+    cols = params.unbind(1)
+    return cost_model.JobParams(
+        ops=ops_t, macro=cost_model.MacroParams(*cols[:nm]),
+        tech=cost_model.TechParams(*cols[nm:nm + nt]),
+        allowed=params[:, nm + nt:nm + nt + 8], obj_code=cols[-2],
+        area_budget=cols[-1], bw=None)
+
+
 #: where the strategy mask sits in a packed parameter row (the kernel's
 #: ``Param`` layout: 11 macro and 12 tech constants, then the mask)
 P_ALLOWED = 23
@@ -295,14 +352,17 @@ def se_instantiations(build, se) -> dict[str, dict]:
     return rows
 
 
-def strategy_eval_rows(torch, se, shapes: LaunchShapes, insts: dict,
-                       card: str, fp64_shapes: set) -> list[dict]:
+def strategy_eval_rows(torch, se, ref, cost_model, shapes: LaunchShapes,
+                       insts: dict, card: str, fp64_shapes: set) -> list[dict]:
     """Each launch shape the main path gave the kernel, on its own first
-    inputs, in fp32 (and fp64 for ``fp64_shapes``): time per call and
-    replayed from a CUDA graph, bound and share of it, launches on the
-    main path, and the instantiation's registers, spills and
+    inputs, in fp32 (and fp64 for ``fp64_shapes``): held against the
+    plain version (relative error within 1e-5 in fp32 and 1e-12 in fp64,
+    per-operator strategies equal), time per call and replayed from a CUDA
+    graph, the plain version's time, bound and share of it, launches on
+    the main path, and the instantiation's registers, spills and
     ``MUFU.RCP``."""
     fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
+    rtols = {"float32": 1e-5, "float64": 1e-12}
     rows = []
     for key in sorted(shapes.inputs, key=lambda k: (-k[0] * k[1], k)):
         cand, ops_t, params, ps = shapes.inputs[key]
@@ -311,16 +371,35 @@ def strategy_eval_rows(torch, se, shapes: LaunchShapes, insts: dict,
                 :2 if key in fp64_shapes else 1]:
             c, o, p = (x.to(dtype) for x in (cand, ops_t, params))
             fn = lambda: se.launch(c, o, p, ps, totals=totals)
+            job = job_of_params(cost_model, o, p)
+            plain = lambda: ref.job_objective_ref(job, c, ps, totals=totals)
+            got, want = fn(), plain()
+            got, want = ((got, want) if totals else ((got,), (want,)))
+            label = f"strategy_eval [{key[0]}, {key[1]}, P={key[2]}]"
+            err = max(rel_err(g, w) for g, w in zip(got[:3], want[:3]))
+            if err > rtols[dtype_of(c)]:
+                fail(f"{label} {dtype_of(c)}: max rel error {err:.3e} "
+                     f"against the plain version")
+            if totals and not torch.equal(got[3], want[3]):
+                fail(f"{label} {dtype_of(c)}: per-operator strategies "
+                     "differ from the plain version's")
+            abs_err = max(float((g.double() - w.double()).abs().max())
+                          for g, w in zip(got[:3], want[:3]))
             b_ms, b_by = bound_ms(c, o, p, totals)
             ms, g_ms = timed_ms(torch, fn), graph_ms(torch, fn)
+            p_ms = timed_ms(torch, plain)
             inst = insts.get(CXX_TYPES[dtype_of(c)], {})
             row = dict(shape=list(key[:3]), totals=totals, dtype=dtype_of(c),
                        launches=shapes.counts[key], ms=ms, graph_ms=g_ms,
+                       plain_ms=p_ms, max_abs_err=abs_err, max_rel_err=err,
                        bound_ms=b_ms, bound_by=b_by, **inst)
             rows.append(row)
             print(f"[strategy_eval] [J {key[0]}, C {key[1]}, P {key[2]}]"
                   f"{' totals' if totals else ''} {row['dtype']}: "
-                  f"{ms:.4f} ms per call, graph {fmt(g_ms)}; bound "
+                  f"max rel error {err:.3e} against the plain version"
+                  + (", strategies equal" if totals else "") + "; "
+                  f"{ms:.4f} ms per call, graph {fmt(g_ms)}, plain "
+                  f"{p_ms:.4f} ms; bound "
                   f"{b_ms:.6f} ms ({b_by}), {b_ms / ms:.4f} of bound per call"
                   + (f", {b_ms / g_ms:.4f} from the graph" if g_ms else "")
                   + f"; {row['launches']} main-path launches; "
@@ -940,6 +1019,352 @@ def phase_search(torch, port_core, ops, ref, dev, jobs, meta, exhaustive,
     return paths
 
 
+#: the ten schedule sums held against the closed form's fields
+#: (tests/test_cost_vs_compiler.py)
+SCHEDULE_VS_COST = dict(
+    v_bits="v_ema_bits", s_bits="s_ema_bits", spill_bits="spill_ema_bits",
+    y_bits="y_ema_bits", is_rd_bits="is_rd_bits", is_wr_bits="is_wr_bits",
+    os_rd_bits="os_rd_bits", os_wr_bits="os_wr_bits",
+    compute_cycles="compute_cycles", update_cycles="update_cycles",
+)
+#: small operators whose address-level traces phase 13.2 replays
+TRACE_CASES = (((2, 2, 4, 8, 2), (37, 200, 150)),
+               ((1, 1, 2, 4, 1), (9, 70, 40)),
+               ((3, 2, 16, 64, 8), (21, 500, 120)))
+#: phase 13.5's checkpoint: after this round, then resumed to the end
+RESUME_AFTER = 4
+
+
+def phase_verify(torch, port_core, ops, dev, jobs, meta, exhaustive, engine,
+                 card) -> tuple[list[tuple], int]:
+    """Phase 13: verify and scale.  The instruction-flow compiler against
+    the kernel on phase 4's 28 winners (schedule sums equal to the fp64
+    closed form on the card, the cycle simulator inside its bounds, the
+    simulation gap), trace replay, the systolic baseline, the single-job
+    SA / exhaustive API with a kernel objective, and the distributed DSE
+    on 1 and 4 slots with checkpoint, resume and elastic resume.  The SA,
+    exhaustive and distributed runs are each held against the same run
+    with the plain version on the same device, and each SA and distributed
+    run has one traced repeat for the device's busy share.  Returns
+    the paths phase 10 re-drives as (name, drive, strategy_eval launches),
+    and the launches of the runs it does not re-drive."""
+    import tempfile
+
+    from repro_torch.core import compiler, cost_model, distributed, systolic
+    from repro_torch.core.pruning import candidates_with_bw, prune_space
+    from repro_torch.kernels import ref
+    sync = lambda: torch.cuda.synchronize() if dev.type == "cuda" else None
+    t_phase = time.perf_counter()
+    paths: list[tuple] = []
+    macro = jobs[0].macro
+    rows = [np.array([[*r.config.as_tuple(), r.config.bw]], np.float64)
+            for r in exhaustive]
+    # each job's exhaustive optimum as an objective value (fp32, the sweep's)
+    optimum = [float(v[0]) for v in engine.candidate_values(jobs, rows)]
+
+    # ---- 13.1 the compiler against the kernel ----------------------------
+    buckets: dict[int, list[int]] = {}
+    for i, j in enumerate(jobs):
+        buckets.setdefault(ops_bucket(j), []).append(i)
+    strat: dict[int, np.ndarray] = {}
+    kernel_lat: dict[int, float] = {}
+
+    def winners_strategies():
+        for idxs in buckets.values():
+            job = cost_model.stack_job_params([job_rows(jobs[i]) for i in idxs],
+                                              torch.float32, dev)
+            cand = torch.as_tensor(np.stack([rows[i] for i in idxs]),
+                                   dtype=torch.float32).to(dev)
+            _, lat, _, idx = ops.job_objective(job, cand, 1e3, totals=True)
+            for jx, i in enumerate(idxs):
+                strat[i] = idx[jx, 0].cpu().numpy()
+                kernel_lat[i] = float(lat[jx, 0])
+    reset_launches(ops)
+    winners_strategies()
+    sync()
+    paths.append(("13.1 winners' strategies", winners_strategies,
+                  se_launches_now(ops)))
+
+    t0 = time.perf_counter()
+    compiled, over = [], collections.Counter()
+    for i, (job, r) in enumerate(zip(jobs, exhaustive)):
+        wl_ops = job.merged_workload().ops
+        names = [str(port_core.ALL_STRATEGIES[s])
+                 for s in strat[i][:len(wl_ops)]]
+        if names != list(r.per_op_strategy.values()):
+            fail(f"{meta[i]}: the kernel's strategies {names} differ from "
+                 f"phase 4's {list(r.per_op_strategy.values())}")
+        for op, s_idx in zip(wl_ops, strat[i]):
+            s = port_core.ALL_STRATEGIES[int(s_idx)]
+            args = (macro, r.config, op.m, op.k, op.n, s)
+            if compiler.schedule_sets(*args) > compiler.MAX_SETS:
+                over[i] += 1
+                continue
+            compiled.append((i, op, s, compiler.compile_schedule(*args)))
+    compile_s = time.perf_counter() - t0
+    n_sets = sum(len(rec["planes"]) for *_, rec in compiled)
+
+    # the closed form of every compiled operator in one fp64 call on dev
+    col = lambda f: torch.tensor([f(i, op, s) for i, op, s, _ in compiled],
+                                 dtype=torch.float64, device=dev)
+    cfg_of = lambda i: exhaustive[i].config
+    cb = cost_model.matmul_cost(
+        col(lambda i, op, s: op.m), col(lambda i, op, s: op.k),
+        col(lambda i, op, s: op.n), col(lambda i, op, s: s.spatial == "R"),
+        col(lambda i, op, s: s.temporal == "WP"),
+        col(lambda i, op, s: s.tiling == "PF"),
+        *[col(lambda i, op, s, f=f: getattr(cfg_of(i), f))
+          for f in ("mr", "mc", "scr", "is_kb", "os_kb", "bw")],
+        1.0, macro, dtype=torch.float64, device=dev)
+    closed = {f: getattr(cb, c).cpu().numpy()
+              for f, c in SCHEDULE_VS_COST.items()}
+    for n, (i, op, s, rec) in enumerate(compiled):
+        tot = compiler.schedule_totals(rec)
+        for f in SCHEDULE_VS_COST:
+            if tot[f] != closed[f][n]:
+                fail(f"{meta[i]} op {(op.m, op.k, op.n)} {s}: schedule {f} "
+                     f"{tot[f]} != closed form {closed[f][n]!r} (fp64)")
+
+    t0 = time.perf_counter()
+    sim_total: collections.Counter = collections.Counter()
+    for i, op, s, rec in compiled:
+        cfg = cfg_of(i)
+        overlap = bool(macro.update_during_compute) and cfg.scr >= 2
+        sim = port_core.simulate_schedule(rec, cfg.bw, overlap, device=dev,
+                                          dtype=torch.float64)
+        lb, ub = port_core.analytic_latency_bounds(rec, cfg.bw)
+        if not lb <= sim["latency_cycles"] <= ub:
+            fail(f"{meta[i]} op {(op.m, op.k, op.n)} {s}: simulated "
+                 f"{sim['latency_cycles']} outside [{lb}, {ub}]")
+        sim_total[i] += op.count * sim["latency_cycles"]
+    sim_s = time.perf_counter() - t0
+    gaps = [sim_total[i] / kernel_lat[i] for i in range(len(jobs))
+            if not over[i]]
+    print(f"[verify] 13.1: {len(compiled)} operators of the 28 winners "
+          f"compiled under the kernel's strategies ({n_sets} sets, "
+          f"{compile_s:.2f} s); schedule sums equal the fp64 closed form on "
+          f"the card in all ten fields; every simulated latency inside its "
+          f"bounds ({sim_s:.2f} s); operators over MAX_SETS = "
+          f"{compiler.MAX_SETS} (refused, not simulated) per job: "
+          + ", ".join(f"{' '.join(m)} {over[i]}" for i, m in enumerate(meta)))
+    print("[verify] 13.1 simulation gap, sum(count x simulated latency) / "
+          "kernel total latency, per job: " + "; ".join(
+              f"{' '.join(meta[i])} {sim_total[i] / kernel_lat[i]:.5f}"
+              for i in range(len(jobs)) if not over[i])
+          + (f"; range {min(gaps):.5f}-{max(gaps):.5f}" if gaps else ""))
+
+    # ---- 13.2 trace replay -------------------------------------------------
+    rng = np.random.default_rng(7)
+    replayed = 0
+    for cfg_t, (m, k, n) in TRACE_CASES:
+        cfg = port_core.AcceleratorConfig(*cfg_t)
+        x = rng.integers(-4, 4, (m, k)).astype(np.float64)
+        w = rng.integers(-4, 4, (k, n)).astype(np.float64)
+        for s in port_core.ALL_STRATEGIES:
+            if not port_core.strategy_feasible(macro, cfg, m, k, n, s):
+                continue
+            y = port_core.replay_trace(
+                port_core.compile_trace(macro, cfg, m, k, n, s), x, w,
+                macro, cfg, s)
+            if not np.array_equal(y, x @ w):
+                fail(f"trace replay of {s} on {(m, k, n)} is not x @ w")
+            replayed += 1
+    print(f"[verify] 13.2: {replayed} traces replayed under all 8 "
+          "strategies, each equal to x @ w")
+
+    # ---- 13.3 the systolic baseline (Fig. 1) -------------------------------
+    sweep = systolic.buffer_sweep(area_budget_mm2=5.0, m=512, k=2048, n=2048)
+    best = min(sweep, key=lambda r: r["total_cycles"])
+    print("[verify] 13.3 Fig. 1 buffer sweep, 5 mm^2, 512x2048x2048 (buf KB: "
+          "total cycles): " + ", ".join(
+              f"{r['buf_kb']}: {r['total_cycles']}" for r in sweep)
+          + f"; argmin {best['buf_kb']} KB ({best['rows']}x{best['cols']} "
+          "PEs)")
+
+    # ---- 13.4 the single-job API on bert-large, kernel objective -----------
+    i_bert = meta.index(("bert-large", "st", "ee"))
+    jb = jobs[i_bert]
+    jp = cost_model.stack_job_params([job_rows(jb)], torch.float32, dev)
+    fn = ops.objective_fn(jp)
+    # the same objective through the plain version, on the same device
+    plain_fn = lambda cfg: ref.job_objective_ref(
+        jp, cfg.reshape(1, -1, cfg.shape[-1]).contiguous()).reshape(
+            cfg.shape[:-1])
+    settings = engine.sa_settings                # phase 6's
+    run_sa = lambda f: port_core.simulated_annealing(
+        f, jb.design_space(), jb.bw, settings, device=dev)
+    reset_launches(ops)
+    sync()
+    t0 = time.perf_counter()
+    sa = run_sa(fn)
+    sync()
+    sa_s = time.perf_counter() - t0
+    sa_launches = se_launches_now(ops)
+    ratio = float(sa.best_value) / optimum[i_bert]
+    if ratio > 1.01:
+        fail(f"simulated_annealing is {ratio:.5f}x the exhaustive optimum")
+    if sa_launches != settings.n_steps + 1:
+        fail(f"simulated_annealing made {sa_launches} launches, expected "
+             f"{settings.n_steps + 1}")
+    t0 = time.perf_counter()
+    sa_plain = run_sa(plain_fn)
+    sync()
+    sa_plain_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(sa, sa_plain)):
+        fail("simulated_annealing with the kernel differs from the same run "
+             "with the plain version: best per chain "
+             f"{sa.best_per_chain.tolist()} vs "
+             f"{sa_plain.best_per_chain.tolist()}")
+    sa_busy = traced_busy(torch, lambda: run_sa(fn), sync)
+    paths.append(("13.4 simulated_annealing", lambda: run_sa(fn),
+                  sa_launches))
+    cands, _ = prune_space(jb.design_space(), jb.macro, jb.area_budget_mm2,
+                           jb.bw, jb.tech)
+    cands = candidates_with_bw(cands, jb.bw)
+    reset_launches(ops)
+    sync()
+    t0 = time.perf_counter()
+    best_cfg, best_val = port_core.exhaustive_search(fn, cands, device=dev)
+    sync()
+    ex_s = time.perf_counter() - t0
+    ex_launches = se_launches_now(ops)
+    if not (np.array_equal(best_cfg, rows[i_bert][0])
+            and best_val == optimum[i_bert]):
+        fail(f"exhaustive_search found {best_cfg} ({best_val!r}), phase 4 "
+             f"{rows[i_bert][0]} ({optimum[i_bert]!r})")
+    plain_cfg, plain_val = port_core.exhaustive_search(plain_fn, cands,
+                                                       device=dev)
+    if not (np.array_equal(best_cfg, plain_cfg) and best_val == plain_val):
+        fail(f"exhaustive_search with the kernel found {best_cfg} "
+             f"({best_val!r}), with the plain version {plain_cfg} "
+             f"({plain_val!r})")
+    paths.append(("13.4 exhaustive_search", lambda: port_core
+                  .exhaustive_search(fn, cands, device=dev), ex_launches))
+    print(f"[verify] 13.4 bert-large: simulated_annealing "
+          f"{[float(x) for x in sa.best_cfg]} at {ratio:.5f}x phase 4's "
+          f"optimum, {sa_launches} launches, {sa_s:.3f} s, every chain's best "
+          f"and the trace equal to the run with the plain version on the "
+          f"card ({sa_plain_s:.3f} s); traced repeat: {busy_text(*sa_busy)}; "
+          f"exhaustive_search over {len(cands)} pruned candidates equals "
+          f"phase 4's winner and value bit for bit ({best_val!r}) and the "
+          f"plain version's, {ex_launches} launches, {ex_s:.3f} s; {card}")
+
+    # ---- 13.5 the distributed DSE on 1 and 4 slots -------------------------
+    sa_d = port_core.SASettings()
+    kw = dict(settings=sa_d, chains_per_device=4, rounds=8, sync_every=50)
+    n_jobs = len(jobs)
+    expect = lambda slots, rounds: slots * (1 + rounds * kw["sync_every"])
+    extra = 0
+    def same_state(a_dir: str, b_dir: str) -> bool:
+        with np.load(os.path.join(a_dir, "dse_state.npz")) as a, \
+                np.load(os.path.join(b_dir, "dse_state.npz")) as b:
+            return sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[f], b[f]) for f in a.files)
+
+    def same_results(xs, ys) -> bool:
+        return all(x.config == y.config and x.best_value == y.best_value
+                   and x.trace == y.trace for x, y in zip(xs, ys))
+
+    with tempfile.TemporaryDirectory(prefix="cim-tuner-dse-") as tmp:
+        ckpt = {name: os.path.join(tmp, name)
+                for name in ("1", "plain1", "full", "plain4", "cut",
+                             "elastic")}
+        for slots in (1, 4):
+            mesh = [dev] * slots
+            k_dir = ckpt["full" if slots == 4 else "1"]
+            reset_launches(ops)
+            sync()
+            t0 = time.perf_counter()
+            res = distributed.distributed_co_explore_jobs(
+                mesh, jobs, checkpoint_dir=k_dir, **kw)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = se_launches_now(ops)
+            if launches != expect(slots, kw["rounds"]):
+                fail(f"distributed on {slots} slots: {launches} launches, "
+                     f"expected {expect(slots, kw['rounds'])}")
+            for r, m in zip(res, meta):
+                if len(r.trace) != kw["rounds"] or any(
+                        b > a for a, b in zip(r.trace, r.trace[1:])):
+                    fail(f"distributed {m}: trace {r.trace} not monotone")
+            # the same run with the plain version on the same device: the
+            # draws are the same, so every config, best, trace and the
+            # final population must be too
+            t0 = time.perf_counter()
+            plain = distributed.distributed_co_explore_jobs(
+                mesh, jobs, checkpoint_dir=ckpt[f"plain{slots}"],
+                evaluator=ref.job_objective_ref, **kw)
+            sync()
+            plain_wall = time.perf_counter() - t0
+            if not same_results(res, plain):
+                fail(f"distributed on {slots} slots: the kernel run's "
+                     "configs, bests or traces differ from the plain "
+                     "version's")
+            if not same_state(k_dir, ckpt[f"plain{slots}"]):
+                fail(f"distributed on {slots} slots: the kernel run's final "
+                     "population differs from the plain version's")
+            busy = traced_busy(torch, lambda mesh=mesh: distributed
+                               .distributed_co_explore_jobs(mesh, jobs, **kw),
+                               sync)
+            ratios = [r.best_value / optimum[i] for i, r in enumerate(res)]
+            print(f"[verify] 13.5 distributed_co_explore_jobs, 28 Fig. 7 "
+                  f"jobs, {slots} slot(s) of {dev}: {launches} launches = "
+                  f"{slots} x (1 + {kw['rounds']} x {kw['sync_every']}), "
+                  f"wall {wall:.3f} s; configs, bests, traces and final "
+                  f"population equal to the run with the plain version on "
+                  f"the card (wall {plain_wall:.3f} s); traced repeat: "
+                  f"{busy_text(*busy)}; ratio to phase 4's optimum "
+                  f"{min(ratios):.5f}-{max(ratios):.5f}: " + ", ".join(
+                      f"{' '.join(m)} {q:.5f}" for m, q in zip(meta, ratios))
+                  + f"; {card}", flush=True)
+            paths.append((f"13.5 distributed, {slots} slot(s)",
+                          lambda mesh=mesh: distributed
+                          .distributed_co_explore_jobs(mesh, jobs, **kw),
+                          launches))
+
+        # checkpoint after RESUME_AFTER rounds, resume to the end on 4 slots
+        # (must equal the uninterrupted run), and elastically on 1
+        mesh4 = [dev] * 4
+        reset_launches(ops)
+        distributed.distributed_co_explore_jobs(
+            mesh4, jobs, checkpoint_dir=ckpt["cut"],
+            **dict(kw, rounds=RESUME_AFTER))
+        shutil.copytree(ckpt["cut"], ckpt["elastic"])
+        resumed = distributed.distributed_co_explore_jobs(
+            mesh4, jobs, checkpoint_dir=ckpt["cut"], resume=True, **kw)
+        sync()
+        cut_launches = se_launches_now(ops)
+        want = expect(4, RESUME_AFTER) + 4 * (kw["rounds"] - RESUME_AFTER) \
+            * kw["sync_every"]
+        if cut_launches != want:
+            fail(f"checkpoint + resume: {cut_launches} launches, expected "
+                 f"{want}")
+        if not same_state(ckpt["full"], ckpt["cut"]):
+            fail("the resumed run's final population differs from the "
+                 "uninterrupted run's")
+        if not same_results(resumed, res):
+            fail("the resumed run's results differ from the uninterrupted "
+                 "run's")
+        reset_launches(ops)
+        elastic = distributed.distributed_co_explore_jobs(
+            [dev], jobs, checkpoint_dir=ckpt["elastic"], resume=True, **kw)
+        sync()
+        el_launches = se_launches_now(ops)
+        if any(len(r.trace) != kw["rounds"] for r in elastic):
+            fail("the elastic resume did not run to the last round")
+        extra = cut_launches + el_launches
+        worst = max(r.best_value / optimum[i] for i, r in enumerate(elastic))
+        print(f"[verify] 13.5 checkpoint after round {RESUME_AFTER} and "
+              f"resume on 4 slots: final population and results equal to "
+              f"the uninterrupted run's ({cut_launches} launches); elastic "
+              f"resume 4 -> 1 slot ran to round {kw['rounds']} "
+              f"({el_launches} launches, worst job {worst:.5f}x its "
+              "optimum)")
+    print(f"[verify] phase 13 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{n_jobs} jobs; {card}", flush=True)
+    return paths, extra
+
+
 def http_json(url: str, payload=None, timeout: float = 60.0):
     """GET (or POST ``payload`` as JSON) ``url``; the decoded answer."""
     import urllib.request
@@ -1531,15 +1956,9 @@ def main() -> None:
                  reverse=True)[1:9]
     print("[main] host cumulative s: " + "; ".join(
         f"{name} {t:.4f}" for t, name in top))
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as trace:
-        t0 = time.perf_counter()
-        engine.run(jobs, method="exhaustive")
-        torch.cuda.synchronize()
-        wall_traced = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in trace.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, wall_traced = traced_busy(
+        torch, lambda: engine.run(jobs, method="exhaustive"),
+        torch.cuda.synchronize)
     print(f"[main] device busy {busy_us / 1e3:.3f} ms of {wall_traced:.4f} s "
           f"traced wall: idle share "
           + (f"{1 - busy_us * 1e-6 / wall_traced:.4f}" if busy_us
@@ -1905,6 +2324,10 @@ def main() -> None:
     search_paths = phase_search(torch, port_core, ops, ref, dev, jobs, meta,
                                 results, artifact, card)
 
+    # ---- 13. verify and scale (before phase 10, which records its paths) -
+    verify_paths, verify_extra = phase_verify(
+        torch, port_core, ops, dev, jobs, meta, results, engine, card)
+
     # ---- 10. strategy_eval at each of the main path's launch shapes -------
     # each path once more, untimed, its launches recorded by shape
     shapes = LaunchShapes(se)
@@ -1921,7 +2344,7 @@ def main() -> None:
             ("calibrated job", lambda: port_core.co_explore(
                 macro, wl, FIG7_BUDGET_MM2, method="exhaustive",
                 tech=cm.tech, engine=direct), explore_launches),
-            *search_paths):
+            *search_paths, *verify_paths):
         if name == search_paths[0][0]:
             fp64_shapes = set(shapes.counts)      # phases 4, 6 and 9
         reset_launches(ops)
@@ -1936,7 +2359,7 @@ def main() -> None:
             fail(f"{name}: {recorded} strategy_eval launches recorded, "
                  f"{counted} counted, {timed_launches} in its timed run")
     se_launches = sum(shapes.counts.values())
-    se_rows = strategy_eval_rows(torch, se, shapes,
+    se_rows = strategy_eval_rows(torch, se, ref, cost_model, shapes,
                                  se_instantiations(build, se), card,
                                  fp64_shapes)
     graph32 = {(*r["shape"], r["totals"]): r["graph_ms"] or 0.0
@@ -1966,9 +2389,12 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        # the paths phase 10 recorded, and the service's cold run (12.1)
-        "launches": se_launches + service_launches,
+        # the paths phase 10 recorded, the service's cold run (12.1) and
+        # phase 13's checkpoint and resume runs
+        "launches": se_launches + service_launches + verify_extra,
         "service_launches": service_launches,
+        "verify_launches": verify_extra + sum(
+            sum(path_counts[name].values()) for name, *_ in verify_paths),
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
         "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": None,

@@ -14,9 +14,11 @@ import torch
 
 from repro_torch.core import cost_model
 from repro_torch.core.calibration import CorrectionFactors, TechConstants
+from repro_torch.core.compiler import Instr
 from repro_torch.core.ir import MatmulOp, Workload
 from repro_torch.core.macro import MacroSpec
 from repro_torch.core.pruning import DesignSpace
+from repro_torch.core.systolic import SystolicConfig
 from repro_torch.core.template import AcceleratorConfig
 
 
@@ -64,6 +66,17 @@ def design_space(obj) -> DesignSpace:
 def accelerator_config(obj) -> AcceleratorConfig:
     """A reference ``AcceleratorConfig`` as the port's."""
     return AcceleratorConfig(**_fields(obj))
+
+
+def systolic_config(obj) -> SystolicConfig:
+    """A reference ``SystolicConfig`` as the port's."""
+    return SystolicConfig(**_fields(obj))
+
+
+def instr(obj) -> Instr:
+    """A reference compiler ``Instr`` (one instruction of a trace) as the
+    port's."""
+    return Instr(**_fields(obj))
 
 
 def job_params(obj, dtype: torch.dtype = torch.float64,

@@ -86,6 +86,9 @@ _M_BATCHES = _REG.counter(
 _M_DEDUP = _REG.counter(
     "cim_engine_dedup_hits_total",
     "In-batch duplicate jobs folded into one evaluation")
+_M_RACE = _REG.counter(
+    "cim_engine_device_race_dispatches_total",
+    "Portfolio backend runs placed on an explicit race device")
 _M_RUN_S = _REG.histogram(
     "cim_engine_run_seconds", "Wall-clock of ExplorationEngine.run calls")
 _M_PULLS = _REG.counter(
@@ -352,6 +355,7 @@ class ExplorationEngine:
         device="cuda",
         dtype: torch.dtype = torch.float32,
         evaluator=None,
+        device_race: bool = True,
     ):
         """Build an engine on ``device`` working in ``dtype``.
 
@@ -360,6 +364,9 @@ class ExplorationEngine:
         ``kernels.ops.job_objective`` (the default); passing the kernel's
         plain version (``kernels.ref.job_objective_ref``) runs the same
         engine without the kernel, to hold one against the other.
+        ``device_race=False`` keeps portfolio races on ``device`` even when
+        :func:`repro_torch.core.distributed.race_devices` lists several
+        devices of its kind.
         """
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
@@ -368,6 +375,7 @@ class ExplorationEngine:
         self.sa_settings = sa_settings
         self.penalty_scale = float(penalty_scale)
         self.evaluator = evaluator or ops.job_objective
+        self._device_race = bool(device_race)
         # per-instance counters mirrored into the process-wide registry
         # (the /v1/metrics families above); the service's worker thread
         # and callers on other threads may bump them concurrently
@@ -375,6 +383,7 @@ class ExplorationEngine:
             "jobs": _M_JOBS.labels(),
             "batches": _M_BATCHES.labels(),
             "dedup_hits": _M_DEDUP.labels(),
+            "device_race_dispatches": _M_RACE.labels(),
         })
 
     def stats_snapshot(self) -> dict:
@@ -574,12 +583,14 @@ class ExplorationEngine:
     def _bucket_key(p: _PreparedJob, method: str) -> tuple:
         return (method, p.ops_pad)
 
-    def _stack(self, batch: list[_PreparedJob]) -> cost_model.JobParams:
+    def _stack(self, batch: list[_PreparedJob],
+               device=None) -> cost_model.JobParams:
         return cost_model.stack_job_params(
-            [_job_arrays(p) for p in batch], self.dtype, self.device)
+            [_job_arrays(p) for p in batch], self.dtype,
+            device or self.device)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=self.dtype).to(self.device)
+    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.dtype).to(device or self.device)
 
     # ---- continuous-batching admission ---------------------------- #
     @staticmethod
@@ -622,16 +633,20 @@ class ExplorationEngine:
         return engine_admit
 
     # ---- search-backend path -------------------------------------- #
-    def _dispatch_backend(
+    def _dispatch_backend_async(
         self, batch: list[_PreparedJob], backend, settings,
-        seed_rows: typing.Sequence[int] | None = None,
+        device=None, seed_rows: typing.Sequence[int] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One batched backend run over a bucket; returns the device
         tensors ``(best_idx [J, members, 5], best_val [J, members],
-        trace [J, steps])`` without waiting for them.  Each job draws
-        from its own generator, seeded ``settings.seed`` or, with
+        trace [J, steps])`` without waiting for them, so the portfolio
+        can launch several backends -- possibly on several devices --
+        before it reads any.  ``device`` places every operand and the
+        generators there (``None`` = the engine's device).  Each job
+        draws from its own generator, seeded ``settings.seed`` or, with
         ``seed_rows``, its own seed (the bandit's per-job pull seeds)."""
-        stacked = self._stack(batch)
+        dev = self.device if device is None else device
+        stacked = self._stack(batch, dev)
         width = max(p.mat.shape[1] for p in batch)
         mats = np.stack([
             np.concatenate(
@@ -639,15 +654,17 @@ class ExplorationEngine:
                                   axis=1)], axis=1)
             for p in batch])                                 # [J, 5, L]
         lens = torch.as_tensor(np.stack([p.lens for p in batch]),
-                               dtype=torch.long, device=self.device)
+                               dtype=torch.long, device=dev)
+        if device is not None:
+            self.stats.bump("device_race_dispatches")
 
         def objective(cfg):
             return self.evaluator(stacked, cfg.contiguous(),
                                   self.penalty_scale)
 
         return backend.run(
-            objective, self._tensor(mats), lens, stacked.bw, settings,
-            backend.make_generators(settings, self.device, len(batch),
+            objective, self._tensor(mats, dev), lens, stacked.bw, settings,
+            backend.make_generators(settings, dev, len(batch),
                                     seeds=seed_rows))
 
     def _search_winner(
@@ -688,13 +705,27 @@ class ExplorationEngine:
         snapped to a config and finished."""
         best_idx, best_val, trace = (
             x.cpu().numpy()
-            for x in self._dispatch_backend(batch, backend, settings))
+            for x in self._dispatch_backend_async(batch, backend,
+                                                  settings))
         won = [self._search_winner(p, backend.name, best_idx[jx],
                                    best_val[jx], trace[jx])
                for jx, p in enumerate(batch)]
         return self._finish_batch(batch, *map(list, zip(*won)))
 
     # ---- portfolio (bandit / successive-halving racer) ------------ #
+    def _race_devices(self) -> list:
+        """Devices portfolio race waves round-robin across: those of
+        :func:`repro_torch.core.distributed.race_devices` of the engine's
+        device kind.  ``[None]`` (the engine's device, no placement) when
+        fewer than two remain or ``device_race=False`` -- the one-device
+        path is the same code with no placement step."""
+        if not self._device_race:
+            return [None]
+        from repro_torch.core.distributed import race_devices
+
+        devs = [d for d in race_devices() if d.type == self.device.type]
+        return devs if len(devs) > 1 else [None]
+
     def _run_portfolio_batch(
         self, batch: list[_PreparedJob], settings,
         job_keys: typing.Sequence[str] | None = None,
@@ -728,10 +759,12 @@ class ExplorationEngine:
           into a shared pool that still-improving jobs drain one pull per
           wave; per-job accounting lands in ``search["budget_flow"]``.
 
-        A wave launches every constituent's run on the card before the
-        host waits for any; the fold of each run into the per-job
-        incumbents (one copy to the host per backend per wave) is the
-        per-rung best exchange.  With ``fidelity="measured"`` a last rung
+        A wave launches every constituent's run before the host waits for
+        any, each on its race device (:meth:`_race_devices`, placed by
+        ``settings.device_affinity`` or round-robin); the fold of each run
+        into the per-job incumbents (one copy to the host per backend per
+        wave) is the per-rung best exchange.  Placement never feeds the
+        generators, so any placement gives bit-identical results.  With ``fidelity="measured"`` a last rung
         re-scores each job's top-K analytic candidates under
         ``resolve_corrections()`` and reports both rankings.
         """
@@ -752,10 +785,9 @@ class ExplorationEngine:
             raise ValueError("rung admission requires job_keys")
         names = settings.backends
         n_jobs, n_back = len(batch), len(names)
-        # the port races on the engine's one device: the placement is
-        # validated and every constituent wraps onto the one slot
-        n_devices = 1
-        dev_of = constituent_devices(settings, [None])
+        devices = self._race_devices()
+        n_devices = sum(d is not None for d in devices) or 1
+        dev_of = constituent_devices(settings, devices)
         measured = getattr(settings, "fidelity", "analytic") == "measured"
         bus = obs.progress_bus()
         recorder = obs.flight_recorder()
@@ -785,13 +817,14 @@ class ExplorationEngine:
         pool: list[dict[tuple, float]] = [dict() for _ in range(n_jobs)]
 
         def _launch(b_idx: int, scaled, sel: list[int], seed_rows=None):
-            """Launch one backend's run over ``sel`` on the card (the host
-            does not wait); returns a handle for :func:`_collect`."""
+            """Launch one backend's run over ``sel`` on its race device
+            (the host does not wait); returns a handle for
+            :func:`_collect`."""
             if not sel:
                 return None
-            arrays = self._dispatch_backend(
+            arrays = self._dispatch_backend_async(
                 [batch[j] for j in sel], get_backend(names[b_idx]), scaled,
-                seed_rows=seed_rows)
+                device=dev_of[b_idx], seed_rows=seed_rows)
             return (b_idx, sel, arrays)
 
         def _collect(handle, prev=None,

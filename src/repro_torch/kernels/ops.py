@@ -52,6 +52,20 @@ def job_objective(job: JobParams, cand: torch.Tensor,
 job_objective.launches = 0
 
 
+def objective_fn(job: JobParams, penalty_scale: float = 1e3):
+    """One job's objective ``cfg [..., 6] -> [...]`` through
+    :func:`job_objective` (one ``strategy_eval`` launch per call on the
+    card): the batched objective the single-job SA and exhaustive APIs of
+    ``core/annealing.py`` take.  ``job`` has one job (J = 1)."""
+    if job.ops.shape[0] != 1:
+        raise ValueError(f"objective_fn takes one job, got {job.ops.shape[0]}")
+
+    def fn(cfg: torch.Tensor) -> torch.Tensor:
+        flat = cfg.reshape(1, -1, cfg.shape[-1]).contiguous()
+        return job_objective(job, flat, penalty_scale).reshape(cfg.shape[:-1])
+    return fn
+
+
 def _strategy_eval(candidates: torch.Tensor, ops_arr: torch.Tensor, macro,
                    *, objective: str = "ee", strategy_set: str = "st",
                    tech=None) -> torch.Tensor:

@@ -20,7 +20,11 @@ width.  Each search backend (Sobol, GA, DE, the bandit and halving
 portfolio) with the kernel as its objective equals the same backend with
 the plain version on the card: winners, values, traces and pulls.  The
 DSE service's queue on the card (its worker thread launching the kernel)
-gives the 28 Fig. 7 exhaustive jobs exactly as one engine run does.
+gives the 28 Fig. 7 exhaustive jobs exactly as one engine run does.  The
+distributed DSE over the 28 Fig. 7 jobs on 1 and 4 slots of the card
+with the kernel equals the same run with the plain version (configs,
+bests, traces, final populations), and ``simulate_schedule`` on the card
+equals the CPU in fp64.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_kernels_cuda.py``.
 """
@@ -451,3 +455,121 @@ def test_service_queue_equals_engine_on_card(card, dtype, tmp_path):
         assert g.per_op_strategy == w.per_op_strategy
         assert g.metrics == w.metrics
         assert g.search["device"] == torch.cuda.get_device_name(card)
+
+
+# ---- slice 7: the distributed DSE and the simulator on the card ------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("slots", [1, 4])
+def test_distributed_kernel_equals_plain(card, slots, dtype, tmp_path):
+    """The distributed DSE over the 28 Fig. 7 jobs with the kernel as its
+    evaluator equals the same run with the plain version on the card: the
+    draws are the same, so configs, bests, traces and final populations."""
+    from repro_torch.core import ExploreJob, SASettings
+    from repro_torch.core.distributed import distributed_co_explore_jobs
+    macro = get_macro("vanilla-dcim")
+    jobs = [ExploreJob(macro, bert_large_workload() if n == "bert-large"
+                       else get_arch(n).workload(seq=512), 5.0,
+                       objective=obj, strategy_set=sset)
+            for n in FIG7 for sset in ("so", "st") for obj in ("ee", "th")]
+    kw = dict(settings=SASettings(seed=3), chains_per_device=4, rounds=3,
+              sync_every=20, dtype=dtype)
+    before = ops.job_objective.launches
+    got = distributed_co_explore_jobs([card] * slots, jobs,
+                                      checkpoint_dir=str(tmp_path / "k"),
+                                      **kw)
+    assert ops.job_objective.launches - before == slots * (1 + 3 * 20)
+    want = distributed_co_explore_jobs(
+        [card] * slots, jobs, checkpoint_dir=str(tmp_path / "p"),
+        evaluator=ref.job_objective_ref, **kw)
+    for g, w in zip(got, want):
+        assert g.config == w.config
+        assert g.best_value == w.best_value
+        assert g.trace == w.trace
+    with np.load(tmp_path / "k" / "dse_state.npz") as a, \
+            np.load(tmp_path / "p" / "dse_state.npz") as b:
+        for f in a.files:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_simulate_schedule_card_equals_cpu_fp64(card, overlap):
+    """simulate_schedule on the card equals the CPU in fp64 (exact), on
+    schedules of 3 to 8,192 sets."""
+    from repro_torch.core import (ALL_STRATEGIES, AcceleratorConfig,
+                                  compile_schedule, simulate_schedule,
+                                  strategy_feasible)
+    macro = get_macro("vanilla-dcim")
+    n = 0
+    for cfg, (m, k, nn) in [((2, 2, 4, 16, 8), (40, 300, 200)),
+                            ((1, 2, 4, 16, 8), (512, 1024, 1024)),
+                            ((3, 2, 16, 128, 64), (512, 4096, 1024))]:
+        cfg = AcceleratorConfig(*cfg)
+        for s in ALL_STRATEGIES:
+            if not strategy_feasible(macro, cfg, m, k, nn, s):
+                continue
+            rec = compile_schedule(macro, cfg, m, k, nn, s)
+            got = simulate_schedule(rec, cfg.bw, overlap, device=card,
+                                    dtype=torch.float64)
+            want = simulate_schedule(rec, cfg.bw, overlap, device="cpu",
+                                     dtype=torch.float64)
+            assert got == want
+            assert simulate_schedule(rec, cfg.bw, overlap)["n_sets"] == \
+                want["n_sets"]
+            n += 1
+    assert n >= 12
+
+
+@pytest.fixture
+def cards(card):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_distributed_across_cards_equals_one_card(cards, tmp_path):
+    """A mesh of one slot per card equals the same number of slots on card
+    0: placement feeds neither the draws nor the kernel's values."""
+    from repro_torch.core import ExploreJob, SASettings
+    from repro_torch.core.distributed import distributed_co_explore_jobs
+    macro = get_macro("vanilla-dcim")
+    jobs = [ExploreJob(macro, get_arch(n).workload(seq=512), 5.0,
+                       objective=obj)
+            for n in ("yi-6b", "whisper-small") for obj in ("ee", "th")]
+    kw = dict(settings=SASettings(seed=1), chains_per_device=4, rounds=3,
+              sync_every=20)
+    spread = distributed_co_explore_jobs(
+        cards, jobs, checkpoint_dir=str(tmp_path / "a"), **kw)
+    stacked = distributed_co_explore_jobs(
+        [cards[0]] * len(cards), jobs, checkpoint_dir=str(tmp_path / "b"),
+        **kw)
+    for g, w in zip(spread, stacked):
+        assert g.config == w.config and g.best_value == w.best_value
+        assert g.trace == w.trace
+    with np.load(tmp_path / "a" / "dse_state.npz") as a, \
+            np.load(tmp_path / "b" / "dse_state.npz") as b:
+        for f in a.files:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def test_portfolio_race_across_cards_equals_one_card(cards):
+    """The engine's portfolio raced across the cards (race_devices) equals
+    its one-card run bit for bit, and places runs on the other cards."""
+    from repro_torch.core import ExplorationEngine, ExploreJob
+    from repro_torch.search import PortfolioSettings
+    macro = get_macro("vanilla-dcim")
+    jobs = [ExploreJob(macro, bert_large_workload(), 5.0, objective=obj)
+            for obj in ("ee", "th")]
+    s = PortfolioSettings(total_evals=1600, seed=4)
+    raced_engine = ExplorationEngine(device=cards[0])
+    raced = raced_engine.run(jobs, method="portfolio", settings=s)
+    single = ExplorationEngine(device=cards[0], device_race=False).run(
+        jobs, method="portfolio", settings=s)
+    assert raced_engine.stats_snapshot()["device_race_dispatches"] > 0
+    for r, q in zip(raced, single):
+        assert r.search["portfolio"]["devices"] == len(cards)
+        assert q.search["portfolio"]["devices"] == 1
+        assert r.config == q.config
+        assert float(r.sa.best_value) == float(q.sa.best_value)
+        assert r.search["portfolio"]["pulls"] == q.search["portfolio"]["pulls"]
