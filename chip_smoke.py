@@ -104,6 +104,26 @@ of which fails the run when it fails:
    round 4 resumed to the end equal to the uninterrupted run, and an
    elastic resume from 4 slots to 1.
 
+14. serve (run after phase 12) -- ``ServeEngine`` at full width and
+   depth for yi-6b (32 layers, d 4096, GQA 32/4, head 128) and
+   falcon-mamba-7b (64 Mamba-1 layers, d_inner 8192, state 16), weights
+   from the port's own init (seed 0), one model at a time: 14.a a seeded
+   prompt's prefill (1 x 4096 and 1 x 2048) through the kernels -- exactly
+   32 ``flash_attention`` launches at 32x4096x4096x128 bf16 and 64
+   ``selective_scan`` launches at 1x2048x8192x16 fp32, no other kernel --
+   against the same model with the plain twins on the card (max |d
+   logits| within ``SERVE_REL_TOL`` of max |logit|, top-1 agreement at
+   least ``SERVE_TOP1``), the kernel's CUDA-event time and share of the
+   wall; 14.b ``generate`` (4 left-padded prompts of 256-512 tokens, 32
+   new, greedy: prefill_s, decode_s, tokens_per_s; 32 flash launches, 64
+   x 33 scan launches) with the plain twins teacher-forced on its tokens
+   and held at every step; each launch shape of 14.a and 14.b timed
+   against its plain version, bound and SDPA; 14.c ``python -m
+   repro_torch.launch.serve --arch <id> --batch 4 --prompt-len 512
+   --new-tokens 32`` as a subprocess (exit 0, the reference's two lines);
+   peak memory.  The kernels line reports the serve path's launches and
+   shapes for the two kernels.
+
 Timed and counted ``co_explore`` drives (phases 6, 9, 10, 11) pass
 ``engine=``, the bypass of the service, so a repeat times the engine and
 not a store hit; phase 5's Table II runs go through the service.
@@ -1754,6 +1774,267 @@ def phase_service(torch, port_core, ops, dev, jobs, meta, results,
     return launched
 
 
+#: phase 14: the two serving models at full width and depth, each with the
+#: length of its 14.a prompt and the one kernel its path launches
+SERVE_ARCHS = {"yi-6b": (4096, "flash_attention"),
+               "falcon-mamba-7b": (2048, "selective_scan")}
+SERVE_BATCH, SERVE_PROMPTS, SERVE_NEW = 4, (256, 512), 32
+#: kernel path against the plain twins on the card, on the same weights:
+#: max |logits - plain| over max |plain logit|, and the share of positions
+#: whose top-1 token agrees.  Set from the CPU rehearsal
+#: (tests/test_torch_kernel_path.py): with the kernels' arithmetic models
+#: or plain versions standing in for them, the gap of the random-weight
+#: stacks grows with depth and width to a floor of 0.048-0.051 of max
+#: |logit| (top-1 0.88-0.93) at 64 Mamba layers of width 1024-4096, where
+#: fp32 reorderings of the scan, rounded to bf16 at every layer, have
+#: spread through the whole stack (yi-6b's 32 layers: 0.022, top-1
+#: 0.965).  The bar is twice the floor: a wrong kernel moves the logits
+#: by about their own size
+SERVE_REL_TOL = 0.1
+SERVE_TOP1 = 0.8
+
+
+def logit_gap(got, want) -> dict:
+    """max |got - want|, the same over max |want|, and the top-1
+    agreement over the positions of logits [..., V]."""
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return {"max_abs": diff, "rel": diff / scale, "top1": top1}
+
+
+def check_gap(label: str, gap: dict) -> None:
+    if not (gap["rel"] <= SERVE_REL_TOL and gap["top1"] >= SERVE_TOP1):
+        fail(f"{label}: kernel path against plain twins {gap} breaks "
+             f"rel {SERVE_REL_TOL} / top-1 {SERVE_TOP1}")
+
+
+def teacher_forced(model, params, padded, tokens, cache_len: int):
+    """Last-position logits [B, n + 1, V] of ``model`` over the prompt
+    batch, then after each of ``tokens`` [B, n] fed in turn: prefill and
+    one decode per token, as ``ServeEngine.generate`` runs them."""
+    b, t = padded.shape
+    logits, caches = model.prefill(params, {
+        "tokens": padded,
+        "caches": model.init_cache(b, cache_len, padded.device)})
+    steps = [logits[:, -1]]
+    for i in range(tokens.shape[1]):
+        logits, caches = model.decode(params, caches, tokens[:, i:i + 1])
+        steps.append(logits[:, -1])
+    import torch
+    return torch.stack(steps, dim=1)
+
+
+class KernelSpans:
+    """Wraps a kernel wrapper: CUDA events around each launch, and a copy
+    of the first inputs of each launch shape, to time the kernel later on
+    the path's own data. It costs copies, so no counted run goes through
+    it."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.spans: list = []
+        self.inputs: dict[tuple, tuple] = {}
+
+    def __call__(self, *args, **kw):
+        torch = self.torch
+        key = tuple(tuple(a.shape) for a in args[:1]) + (
+            tuple(args[1].shape), dtype_of(args[0]), kw.get("causal"))
+        if key not in self.inputs:
+            self.inputs[key] = (tuple(a.clone() for a in args), dict(kw))
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.fn(*args, **kw)
+        e.record()
+        self.spans.append((s, e))
+        return out
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.spans)
+
+
+def expect_launches(label: str, got: dict, kernel: str, n: int) -> None:
+    """Fail unless ``kernel`` launched ``n`` times and no other kernel."""
+    want = {k: (n if k == kernel else 0) for k in got}
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+
+
+def phase_serve(torch, ops, ref, dev, card, configs=None) -> dict:
+    """Phase 14: ``ServeEngine`` at full width and depth on the card for
+    each of ``SERVE_ARCHS``, weights from the port's own init (seed 0):
+    14.a a seeded prompt's prefill through the kernels (launch counts
+    reset just before and read just after; the kernel's CUDA-event time
+    and its share of the wall) against the plain twins on the same
+    weights; 14.b ``generate`` (4 left-padded prompts of 256-512 tokens,
+    32 new, greedy) with its launches, the plain twins teacher-forced on
+    its tokens and held at every step; 14.c ``python -m
+    repro_torch.launch.serve`` as a subprocess. ``configs`` maps an arch
+    to the config to serve (default: its full one). Returns each kernel's
+    launches on the path and its timed launch shapes."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, layers, ssm
+    from repro_torch.obs.profile import PROFILE_ENV
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    # the serve path as a user runs it: phase 9's in-process microbench
+    # left the profiling hooks on (a synchronise after every launch, which
+    # also breaks the CUDA-graph timing of the launch shapes)
+    os.environ.pop(PROFILE_ENV, None)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    wrappers = ops.KERNEL_WRAPPERS
+    out = {name: {"launches": {}, "cases": []} for _, name in
+           SERVE_ARCHS.values()}
+
+    def counted(fn):
+        """``fn()`` with every kernel count reset just before and read just
+        after, and its wall."""
+        reset_launches(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            k: w.launches for k, w in wrappers.items()}
+
+    for arch, (t_len, kernel) in SERVE_ARCHS.items():
+        cfg = (configs or {}).get(arch) or get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model, params = engine.model, engine.params
+        plain = build_model(cfg, attention=layers.attention_any,
+                            scan=ssm.plain_scan)
+        spans = KernelSpans(torch, wrappers[kernel])
+        route = {"attention": functools.partial(layers.flash_prefill,
+                                                kernel=spans)} \
+            if kernel == "flash_attention" else \
+            {"scan": functools.partial(ssm.kernel_scan, kernel=spans)}
+        timed = build_model(cfg, **route)
+        print(f"[serve] {arch}: {model.param_count(params):,} parameters "
+              f"initialised on the card in {init_s:.2f} s (seed 0); {card}",
+              flush=True)
+
+        # ---- 14.a prefill: kernels against plain twins -------------------
+        prompt = {"tokens": torch.as_tensor(
+            rng.integers(1, cfg.vocab, (1, t_len)), device=dev)}
+        model.prefill(params, prompt)                       # warm-up
+        (logits, _), wall, launches = counted(
+            lambda: model.prefill(params, prompt))
+        expect_launches(f"{arch} 14.a prefill", launches, kernel,
+                        cfg.n_layers)
+        out[kernel]["launches"]["14.a prefill"] = launches[kernel]
+        timed.prefill(params, prompt)
+        spans.spans.clear()
+        _, timed_wall, _ = counted(lambda: timed.prefill(params, prompt))
+        kernel_ms = spans.ms()
+        plain.prefill(params, prompt)                       # warm-up
+        (want, _), plain_wall, plain_launches = counted(
+            lambda: plain.prefill(params, prompt))
+        if any(plain_launches.values()):
+            fail(f"{arch}: the plain twins launched {plain_launches}")
+        gap = logit_gap(logits, want)
+        check_gap(f"{arch} 14.a prefill 1x{t_len}", gap)
+        del logits, want
+        print(f"[serve] {arch} 14.a prefill 1x{t_len}: wall {wall:.4f} s "
+              f"(plain twins {plain_wall:.4f} s); {launches[kernel]} "
+              f"{kernel} launches, {kernel_ms:.3f} ms by CUDA events = "
+              f"{kernel_ms * 1e-3 / timed_wall:.4f} of the timed run's "
+              f"wall {timed_wall:.4f} s; max |logits - plain| "
+              f"{gap['max_abs']:.4g} = {gap['rel']:.4g} of max |logit| "
+              f"(bar {SERVE_REL_TOL}), top-1 agreement {gap['top1']:.4f}; "
+              f"{card}", flush=True)
+
+        # ---- 14.b generate --------------------------------------------------
+        prompts = [list(rng.integers(1, cfg.vocab, rng.integers(
+            SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1)))
+            for _ in range(SERVE_BATCH)]
+        gen = GenerationConfig(max_new_tokens=SERVE_NEW)
+        engine.generate(prompts, GenerationConfig(max_new_tokens=2))
+        res, gen_wall, launches = counted(
+            lambda: engine.generate(prompts, gen))
+        n_decode = res["tokens"].shape[1]        # one decode per token
+        per_call = cfg.n_layers
+        want_n = per_call if kernel == "flash_attention" else \
+            per_call * (1 + n_decode)
+        expect_launches(f"{arch} 14.b generate", launches, kernel, want_n)
+        out[kernel]["launches"]["14.b generate"] = launches[kernel]
+        padded = torch.as_tensor(engine._pad_batch(prompts), device=dev)
+        tokens = torch.as_tensor(res["tokens"], device=dev)
+        cache_len = padded.shape[1] + SERVE_NEW
+        spans.spans.clear()
+        steps = teacher_forced(timed, params, padded, tokens, cache_len)
+        gen_kernel_ms = spans.ms()
+        same = bool((steps[:, :-1].argmax(-1) == tokens).all())
+        plain_steps = teacher_forced(plain, params, padded, tokens, cache_len)
+        # the bar at every step; top-1 over all of them (4 rows a step)
+        gaps = [logit_gap(steps[:, i], plain_steps[:, i])
+                for i in range(steps.shape[1])]
+        worst = max(gaps, key=lambda g: g["rel"])
+        top1_all = logit_gap(steps, plain_steps)["top1"]
+        check_gap(f"{arch} 14.b worst step", dict(worst, top1=top1_all))
+        del steps, plain_steps
+        print(f"[serve] {arch} 14.b generate {SERVE_BATCH} prompts of "
+              f"{[len(p) for p in prompts]} tokens (left-padded to "
+              f"{padded.shape[1]}), {n_decode} new, greedy: prefill_s "
+              f"{res['prefill_s']:.4f}, decode_s {res['decode_s']:.4f}, "
+              f"tokens_per_s {res['tokens_per_s']:.2f} (wall "
+              f"{gen_wall:.4f} s); {launches[kernel]} {kernel} launches "
+              f"({n_decode} decode calls); the kernel path teacher-forced "
+              f"on its tokens: {gen_kernel_ms:.3f} ms of {kernel} by CUDA "
+              f"events, reproduces them: {same}; plain twins teacher-forced "
+              f"over {n_decode + 1} steps: worst max |d| "
+              f"{worst['max_abs']:.4g} = {worst['rel']:.4g} of max |logit|, "
+              f"top-1 agreement {top1_all:.4f}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{card}", flush=True)
+
+        # the launch shapes of 14.a and 14.b, on the path's own inputs
+        for key, (args, kw) in spans.inputs.items():
+            label = (f"serve {arch} "
+                     + "x".join(map(str, (*args[0].shape, args[4].shape[1])
+                                    if kernel == "selective_scan" else
+                                    (*args[0].shape[:2], args[1].shape[1],
+                                     args[0].shape[2])))
+                     + f" {dtype_of(args[0])}")
+            out[kernel]["cases"].append(measure_case(
+                torch, ref, kernel, wrappers[kernel], args, kw, label, card))
+        del engine, model, params, plain, timed, spans, route, prompt, padded
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() / 2**30
+
+        # ---- 14.c the CLI ---------------------------------------------------
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+             "--batch", str(SERVE_BATCH), "--prompt-len",
+             str(SERVE_PROMPTS[1]), "--new-tokens", str(SERVE_NEW)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0 or len(lines) < 2 or \
+                not lines[0].startswith("prefill ") or \
+                lines[1] != "sampled tokens:":
+            fail(f"launch.serve --arch {arch} exited {proc.returncode}:\n"
+                 f"{proc.stdout}\n{proc.stderr}")
+        print(f"[serve] {arch} 14.c python -m repro_torch.launch.serve "
+              f"--batch {SERVE_BATCH} --prompt-len {SERVE_PROMPTS[1]} "
+              f"--new-tokens {SERVE_NEW}: exit 0 in "
+              f"{time.perf_counter() - t0:.2f} s (this process holding "
+              f"{held:.2f} GiB): {lines[0]}; {card}", flush=True)
+    print(f"[serve] phase 14 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+    return out
+
+
 def main() -> None:
     import tempfile
 
@@ -2375,17 +2656,29 @@ def main() -> None:
                                      results, wall, card)
     shutil.rmtree(store_root, ignore_errors=True)
 
+    # ---- 14. serve: yi-6b and falcon-mamba-7b at full width and depth ----
+    serve = phase_serve(torch, ops, ref, dev, card)
+
     t32 = timing["float32"]
     new_lines = []
     for name, (source, replaces) in NEW_KERNELS.items():
-        first = new_cases[name][0]
+        # the serve path's kernels report its first shape (14.a's prefill)
+        # and its launches; cim_matmul the calibration path's
+        on_path = serve.get(name)
+        first = on_path["cases"][0] if on_path else new_cases[name][0]
         new_lines.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": cal_launches[name],
+            "replaces": replaces,
+            "launches": sum(on_path["launches"].values()) if on_path
+            else cal_launches[name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "design": DESIGNS[name],
-            "shape": first["label"], "cases": new_cases[name]})
+            "shape": first["label"],
+            "calibration_launches": cal_launches[name],
+            **({"serve_launches": on_path["launches"],
+                "serve_cases": on_path["cases"]} if on_path else {}),
+            "cases": new_cases[name]})
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,

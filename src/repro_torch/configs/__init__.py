@@ -1,4 +1,4 @@
 """Per-architecture configs (``get_arch(<id>)``).  See base.py for the registry."""
-from repro_torch.configs.base import ARCH_IDS, ArchConfig, all_archs, get_arch
+from repro_torch.configs.base import ARCH_IDS, SHAPES, ArchConfig, ShapeSpec, all_archs, get_arch
 
-__all__ = ["ARCH_IDS", "ArchConfig", "all_archs", "get_arch"]
+__all__ = ["ARCH_IDS", "SHAPES", "ArchConfig", "ShapeSpec", "all_archs", "get_arch"]

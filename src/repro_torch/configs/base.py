@@ -1,8 +1,8 @@
-"""Architecture config registry and the CIM-Tuner workload extraction bridge.
-
-The port keeps the reference's :class:`ArchConfig` fields, so the ten arch
-files are the same, but only the part the design-space exploration needs:
-the matmul operator mix of one forward pass (:meth:`ArchConfig.workload`).
+"""Architecture config system: one frozen dataclass per assigned arch,
+a registry (``get_arch(<id>)``), the assigned input-shape set, parameter
+estimates, reduced smoke configs, and the CIM-Tuner workload extraction
+bridge (the matmul operator mix of one forward pass,
+:meth:`ArchConfig.workload`).
 """
 from __future__ import annotations
 
@@ -17,6 +17,24 @@ from repro_torch.core.ir import (
     ssm_layer_ops,
     transformer_layer_ops,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input shape (a dry-run cell column)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +88,41 @@ class ArchConfig:
     # which assigned shapes run (long_500k only for sub-quadratic archs)
     skip_shapes: tuple[str, ...] = ()
 
+    # ------------------------------------------------------------------ #
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def group_pattern(self) -> tuple[str, ...]:
+        return self.pattern
+
     def n_groups(self) -> tuple[int, int]:
         """(full scanned groups, remainder layers)."""
         g = len(self.pattern)
         return self.n_layers // g, self.n_layers % g
+
+    def _layer_params(self, kind: str) -> int:
+        d = self.d_model
+        attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
+            + self.n_heads * self.head_dim * d
+        if kind in ("dense", "local_attn", "self", "enc_self"):
+            return attn + self._ffn_params()
+        if kind == "moe":
+            return attn + d * self.n_experts + \
+                self.n_experts * self._ffn_params()
+        if kind == "mamba":
+            i = self.d_inner
+            return (d * 2 * i + i * (self.dt_rank + 2 * self.ssm_state)
+                    + self.dt_rank * i + i * d + i * self.ssm_state)
+        if kind == "rglru":
+            i = self.d_inner
+            return d * 2 * i + 2 * i * i + i * d + self._ffn_params()
+        if kind == "cross":
+            return attn + self._ffn_params()
+        if kind == "dec_self_cross":
+            return 2 * attn + self._ffn_params()
+        raise ValueError(f"unknown block kind {kind}")
 
     def _layer_counts(self) -> dict[str, int]:
         """Layers per block kind (full scanned groups + remainder prefix)."""
@@ -82,6 +131,54 @@ class ArchConfig:
         for i, kind in enumerate(self.pattern):
             counts[kind] = counts.get(kind, 0) + full + (1 if i < rem else 0)
         return counts
+
+    def params_estimate(self) -> int:
+        """Parameter count (drives roofline MODEL_FLOPS = 6*N*D)."""
+        n = sum(self._layer_params(k) * c
+                for k, c in self._layer_counts().items())
+        n += self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.encoder_layers:
+            n += self.encoder_layers * self._layer_params("enc_self")
+        return n
+
+    def _ffn_params(self) -> int:
+        gated = self.mlp_act in ("swiglu", "geglu")
+        return self.d_model * self.d_ff * (3 if gated else 2)
+
+    def active_params_estimate(self) -> int:
+        """MoE: only top-k experts count toward MODEL_FLOPS."""
+        if not self.n_experts:
+            return self.params_estimate()
+        full = self.params_estimate()
+        inactive = (self.n_experts - self.moe_top_k) * self._ffn_params() \
+            * self.n_layers
+        return full - inactive
+
+    # ------------------------------------------------------------------ #
+    def reduced(self) -> "ArchConfig":
+        """Family-faithful small config for CPU smoke tests."""
+        g = len(self.pattern)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=max(g, 2 if g == 1 else g),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
+            head_dim=16,
+            d_ff=0 if self.d_ff == 0 else 128,
+            vocab=512,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            moe_top_k=min(self.moe_top_k, 2) if self.moe_top_k else 0,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            d_inner=128 if self.d_inner else 0,
+            dt_rank=8 if self.dt_rank else 0,
+            window=min(self.window, 32) if self.window else None,
+            n_memory=16 if self.n_memory else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
+            max_decode_len=128,
+            fsdp=False,
+        )
 
     # ------------------------------------------------------------------ #
     # CIM-Tuner bridge: extract the matmul operator mix of one forward pass

@@ -1,9 +1,10 @@
 """Carry the reference's objects across into the port's.
 
 Each function reads a reference object by duck typing -- dataclass fields
-through ``dataclasses.asdict``, NamedTuple fields through ``_asdict`` --
-and never imports the reference package, so a test can build its inputs
-once and feed the same values to both packages.
+through ``dataclasses.asdict``, NamedTuple fields through ``_asdict``, the
+models' pytrees as nested dicts of numpy arrays -- and never imports the
+reference package, so a test can build its inputs once and feed the same
+values to both packages.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.core.macro import MacroSpec
 from repro_torch.core.pruning import DesignSpace
 from repro_torch.core.systolic import SystolicConfig
 from repro_torch.core.template import AcceleratorConfig
+from repro_torch.models import transformer as tf
 
 
 def _fields(obj) -> dict:
@@ -96,3 +98,74 @@ def job_params(obj, dtype: torch.dtype = torch.float64,
         area_budget=t(leaves["area_budget"]),
         bw=t(leaves["bw"]),
     )
+
+
+# ---------------------------------------------------------------------- #
+# the LM substrate: parameter and cache pytrees
+# ---------------------------------------------------------------------- #
+def _tensor(x, device="cpu") -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included, which torch
+    cannot read directly; its values are exact in float32) as a tensor of
+    the same dtype."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layers(stack: dict, pattern: tuple[str, ...], n_layers: int) -> list:
+    """The reference's scanned groups (leaves stacked [G, ...]) and
+    remainder layers as one list of per-layer trees, in layer order."""
+    full, rem = divmod(n_layers, len(pattern))
+    out = [_map(lambda a, g=g: a[g], stack["groups"][f"b{i}_{kind}"])
+           for g in range(full) for i, kind in enumerate(pattern)]
+    return out + [stack["rem"][f"b{i}_{kind}"]
+                  for i, kind in enumerate(pattern[:rem])]
+
+
+def lm_params(np_tree: dict, cfg, device="cpu") -> tf.ParamTree:
+    """The reference's ``lm_init`` pytree (numpy leaves, groups stacked
+    [G, ...]) as the port's parameters on ``device``, each leaf in the
+    dtype the port keeps it in (``transformer.storage_dtype``)."""
+    tree = {k: v for k, v in np_tree.items() if k not in ("stack", "encoder")}
+    tree["stack"] = {"layers": _layers(np_tree["stack"], cfg.pattern,
+                                       cfg.n_layers)}
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        tree["encoder"] = {
+            "pos": enc["pos"], "ln_final": enc["ln_final"],
+            "stack": {"layers": _layers(enc["stack"], ("enc_self",),
+                                        cfg.encoder_layers)}}
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return {k: leaves(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [leaves(v) for v in t]
+        return _tensor(t, device).float()
+    return tf.ParamTree(tf.to_storage(leaves(tree), cfg))
+
+
+def lm_cache(np_tree: dict, cfg, device="cpu") -> dict:
+    """The reference's decode caches (``init_cache`` / ``prefill``'s,
+    numpy leaves) in the port's layout: one cache per layer, lengths and
+    the step as ints."""
+    def leaf(x):
+        a = np.asarray(x)
+        return int(a) if a.ndim == 0 else _tensor(a, device)
+
+    def layer(c):
+        if c is None:
+            return None
+        return {k: layer(v) if isinstance(v, dict) else leaf(v)
+                for k, v in c.items()}
+    return {"stack": [layer(c) for c in _layers(
+        np_tree["stack"], cfg.pattern, cfg.n_layers)],
+        "step": int(np.asarray(np_tree["step"]))}

@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-NEG_INF = -1e30
-LOG2E = 1.4426950408889634
+from torch_kernel_models import kernel_model
+
 #: chip_smoke.py's bf16 attention tolerance, kernel against plain
 ATOL, RTOL = 1e-3, 2 ** -7
 #: the bf16 shapes of the tests: tests/test_kernels.py's and chip_smoke's
@@ -32,46 +32,6 @@ SHAPES = [(2, 256, 256, 64, True)] + [
                                                          (333, 200))
     for causal in (False, True)]
 TILES = [(64, 64), (64, 128), (128, 64), (128, 128)]
-
-
-def kernel_model(q, k, v, *, causal, bq, bk, split=True):
-    """The bf16 kernel's arithmetic; q [BH, T, d], k, v [BH, S, d] bf16."""
-    f = torch.float32
-    bh, t, d = q.shape
-    s_len = k.shape[1]
-    q32, k32, v32 = q.to(f), k.to(f), v.to(f)
-    scale = torch.tensor(1.0 / math.sqrt(d) * LOG2E, dtype=f)
-    out = torch.empty((bh, t, d), dtype=f)
-    for q0 in range(0, t, bq):
-        qs = q32[:, q0:q0 + bq]
-        qpos = torch.arange(q0, q0 + qs.shape[1])[:, None]
-        m = torch.full((bh, qs.shape[1]), NEG_INF, dtype=f)
-        l = torch.zeros((bh, qs.shape[1]), dtype=f)
-        acc = torch.zeros((bh, qs.shape[1], d), dtype=f)
-        step = 64 if bq == 128 else bk
-        n_steps = -(-s_len // step)
-        if causal:
-            n_steps = min(n_steps, (q0 + bq - 1) // step + 1)
-        for kv0 in range(0, n_steps * step, step):
-            ks, vs = k32[:, kv0:kv0 + step], v32[:, kv0:kv0 + step]
-            kpos = torch.arange(kv0, kv0 + ks.shape[1])[None, :]
-            keep = kpos < s_len
-            if causal:
-                keep = keep & (kpos <= qpos)
-            sc = torch.where(keep, (qs @ ks.transpose(1, 2)) * scale,
-                             torch.tensor(NEG_INF, dtype=f))
-            m_new = torch.maximum(m, sc.max(-1).values)
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(sc - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            hi = p.to(torch.bfloat16).to(f)
-            pv = hi @ vs
-            if split:
-                pv = pv + (p - hi).to(torch.bfloat16).to(f) @ vs
-            acc = acc * alpha[..., None] + pv
-            m = m_new
-        out[:, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
 
 
 def _inputs(shape, seed):

@@ -24,43 +24,9 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 
 from repro_torch.kernels import ref  # noqa: E402
 
+from torch_kernel_models import group_lanes, group_scan  # noqa: E402
+
 ATOL = 1e-3          # chip_smoke.py's fp32 scan tolerance (rtol 0)
-
-
-def group_lanes(s: int) -> int:
-    """Lanes per channel the kernel takes for ``s`` states: S rounded up
-    to a power of two."""
-    g = 1
-    while g < s:
-        g *= 2
-    return g
-
-
-def group_scan(xi, dt, bmat, cmat, a, h0):
-    """The kernel's recurrence and y reduction in fp32: (y [B, T, I] in
-    xi's dtype, h_last [B, I, S] fp32)."""
-    f = torch.float32
-    t_len, s = xi.shape[1], a.shape[1]
-    g = group_lanes(s)
-    pad = lambda x: torch.nn.functional.pad(x.to(f), (0, g - s))
-    h, av = pad(h0), pad(a)                       # idle states stay 0
-    xi32, dt32 = xi.to(f), dt.to(f)
-    b32, c32 = pad(bmat), pad(cmat)
-    lanes = torch.arange(g)
-    ys = []
-    for t in range(t_len):
-        dtv = dt32[:, t, :, None]
-        dtx = dtv * xi32[:, t, :, None]
-        da = torch.exp(dtv * av[None])
-        h = da * h + dtx * b32[:, t, None, :]
-        acc = h * c32[:, t, None, :]              # one product per lane
-        off = g // 2
-        while off:                                # the group's butterfly
-            acc = acc + acc[..., lanes ^ off]
-            off //= 2
-        ys.append(acc[..., 0])
-    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xi32)
-    return y.to(xi.dtype), h[..., :s].contiguous()
 
 
 def _inputs(rng, shape, h0_zero=False):
