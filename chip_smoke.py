@@ -124,6 +124,30 @@ of which fails the run when it fails:
    peak memory.  The kernels line reports the serve path's launches and
    shapes for the two kernels.
 
+15. train (run after phase 14) -- the training path at full width, depth
+   8: 15.a the backward kernels ``flash_attention_bwd`` (yi-6b's layer,
+   32x4096x4096x128 causal, and ragged, non-causal d 64, T != S) and
+   ``selective_scan_bwd`` (1x2048x8192x16, and S in {1, 4, 8, 16} ragged)
+   against autograd of their plain versions on the card (attention row by
+   row: each query's dq, each key's dk and dv), two launches
+   bit-identical, timed per call and from a CUDA graph beside the plain
+   version, the bound and (attention) SDPA's backward; 15.b per config
+   (yi-6b 1 x 4096 tokens, falcon-mamba-7b 1 x 2048) ``Trainer`` for 10
+   steps on the synthetic stream with a checkpoint every 5 (launch counts
+   reset just before and read just after: per step 2 forward launches a
+   layer with remat and 1 backward), the loss falling, a run of 5 steps
+   resumed by a third to step 10 (losses within 1e-3 of the uninterrupted
+   run's), one step of the kernel path against the plain twins (loss and
+   every leaf's gradient under the bars rehearsed on the CPU) at the
+   starting weights, and after training against the plain twins and the
+   exact twin (fp32 attention under autograd in the kernels' place) with
+   that step's backward launches held against their plain versions,
+   sec_per_step, tokens/s, the kernels' CUDA-event share of a step and
+   peak memory; 15.c ``python -m repro_torch.launch.train --arch yi-6b
+   --set n_layers=8 --steps 4 --batch 1 --seq 4096`` in a fresh process.
+   The kernels line gains the two backward kernels with their training
+   launches.
+
 Timed and counted ``co_explore`` drives (phases 6, 9, 10, 11) pass
 ``engine=``, the bypass of the service, so a repeat times the engine and
 not a store hit; phase 5's Table II runs go through the service.
@@ -821,7 +845,7 @@ def se_launches_now(ops) -> int:
 
 def reset_launches(ops) -> None:
     ops.job_objective.launches = 0
-    for w in ops.KERNEL_WRAPPERS.values():
+    for w in (*ops.KERNEL_WRAPPERS.values(), *ops.BACKWARD_WRAPPERS.values()):
         w.launches = 0
 
 
@@ -1854,6 +1878,16 @@ class KernelSpans:
         self.torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.spans)
 
+    # standing in for a wrapper in ``ops`` (the autograd Functions call the
+    # module's names), it passes the wrapper's launch count through
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
 
 def expect_launches(label: str, got: dict, kernel: str, n: int) -> None:
     """Fail unless ``kernel`` launched ``n`` times and no other kernel."""
@@ -2035,6 +2069,602 @@ def phase_serve(torch, ops, ref, dev, card, configs=None) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------- #
+# phase 15: training
+# ---------------------------------------------------------------------- #
+#: the backward kernels of the training path: source, the TPU kernel whose
+#: function they differentiate (the reference has no backward kernel: it
+#: differentiates jnp attention and the jnp scan), and the forward wrapper
+BWD_KERNELS = {
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:59", "flash_attention"),
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/selective_scan.py:62", "selective_scan"),
+}
+BWD_DESIGNS = {
+    "flash_attention_bwd": "CUDA cores: D = rowsum(P dP) in fp32 over q "
+                           "tiles, then dk/dv pass over kv tiles and dq "
+                           "pass over q tiles, each recomputing P from the "
+                           "forward's lse; 64x64 tiles in fp32 shared "
+                           "memory, 4x4 register tiles; no atomics",
+    "selective_scan_bwd": "CUDA cores: a lane per state, S lanes per (batch, "
+                          "channel); forward recompute with a checkpoint "
+                          "every 32 steps, reverse recurrence per chunk from "
+                          "h recomputed into shared memory; sums over s by "
+                          "shuffle trees, over channels per block then a "
+                          "fixed-order reduce; no atomics",
+}
+#: gradients of the backward kernels against autograd of the plain
+#: versions on the same inputs, row by row: each row's max |kernel - plain|
+#: <= tol x that row's max |plain| + floor x the tensor's max |plain| (the
+#: call's largest gradient where the plain tensor is all 0: dq of one
+#: query that sees one key).
+#: Attention's rows are a query's dq and a key's dk and dv: under causal
+#: masking their sizes spread over two orders of magnitude in a 4,096-row
+#: head (dq of query t falls like 1/sqrt(t)), so a bar on the tensor's
+#: largest value would pass a kernel that drops a far tile.  Each gradient
+#: is rounded to bf16 once (2^-9 of the row's largest value); the floor
+#: covers rows that are 0 or nearly so in the plain version (a causal query
+#: that sees one key, a row that one key dominates), where the kernel's
+#: fp32 dP - D leaves about 2^-24 of |dP|: after training, |dP| is large
+#: against the tensor's gradients, and such a row reached 2^-15.4 of the
+#: tensor's largest value.  The scan (fp32, one row: the whole tensor):
+#: sums over channels and time in another order.
+BWD_TOL = {"flash_attention_bwd": (2 ** -6, 2 ** -12, True),
+           "selective_scan_bwd": (1e-4, 0.0, False)}
+#: the forward kernel's log-sum-exp against the plain one (its scores are
+#: fp32 products of bf16 inputs on the tensor cores, the exponentials
+#: ex2.approx)
+LSE_ATOL = 1e-3
+#: operations a backward kernel needs: attention per (query, key) pair the
+#: five products QK^T, dO V^T, P^T dO, dS^T Q, dS K (2 d each, on the
+#: tensor cores in bf16) and P = exp(s - lse), dS = P (dP - D) (4, fp32);
+#: the scan per (b, t, i, s) the forward recompute (exp, 2 products, 1 add)
+#: and the reverse step (g, d(da), the four sums' terms, the da sum: 26)
+BWD_PRODUCT_FLOPS, BWD_SOFTMAX_FLOPS, SCAN_BWD_FLOPS = 10, 4, 30
+
+#: 15.a: the backward kernels' cases, the training path's full-width shape
+#: first (BH, T, S, d, causal / B, T, I, S): yi-6b's layer; T and S not
+#: multiples of the 64-row tiles; the Whisper encoder's non-causal d 64;
+#: T != S both ways; the falcon-mamba-7b layer; S of 1, 4, 8 and 16 lanes
+#: with T not a multiple of the 32-step chunk
+ATTN_BWD_CASES = ((32, 4096, 4096, 128, True, "yi-6b layer"),
+                  (4, 333, 333, 128, True, "ragged"),
+                  (8, 1500, 1500, 64, False, "whisper-small encoder"),
+                  (2, 200, 333, 64, True, "T != S"),
+                  (2, 333, 200, 128, False, "T != S"))
+SCAN_BWD_CASES = ((*FALCON_SCAN, "falcon-mamba-7b layer"),
+                  *((2, 333, 100, s, "ragged") for s in (1, 4, 8, 16)))
+#: phase 15: the two configs of phase 14 at full width, depth cut to
+#: TRAIN_LAYERS (fp32 masters, gradients and two AdamW moments cost 16 B a
+#: parameter: yi-6b's 6.06 B would need 97 GB), each with its sequence
+#: length (one sequence a batch) and the forward kernel of its path
+TRAIN_ARCHS = {"yi-6b": (4096, "flash_attention"),
+               "falcon-mamba-7b": (2048, "selective_scan")}
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 10, 5
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+#: one step of the kernel path against the plain twins on the same weights
+#: and batch: the loss's relative gap and each leaf's relative gradient gap
+#: (Frobenius norm).  Set from the CPU rehearsal
+#: (scripts/train_gap_rehearsal.py: 8 layers of yi-6b at d 512, head 64,
+#: and of falcon-mamba-7b at d_inner 512, 512 tokens, two seeds, through
+#: the autograd Functions' plain route against the reference's branches):
+#: worst leaf gap 0.018-0.020, loss gap at most 1.5e-4.  The gap grows with
+#: width (as the logits' did in phase 14), so the bars are 5x the worst
+#: leaf and 65x the loss; a wrong backward kernel moves a gradient by about
+#: its own size.  Held at the trainer's starting weights and again after
+#: training, there also against the exact twin (the kernel path with fp32
+#: attention under autograd in the kernels' place), which separates the
+#: twins' bf16 rounding from a fault in or around the kernels: peaked
+#: softmax rows after training make dS = P (dP - D) cancel, and a D taken
+#: from the bf16 output put the kernel path 0.167 from both twins
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 0.1
+#: the resumed run's losses against the uninterrupted run's (the embedding
+#: gradient's scatter-add on the card sums in no fixed order)
+RESUME_RTOL = 1e-3
+
+
+def bwd_plain(ref, kernel: str, args: tuple, kwargs: dict):
+    if kernel == "flash_attention_bwd":
+        q, k, v, do, _lse = args
+        return ref.attention_bwd_ref(q, k, v, do, **kwargs)
+    return ref.selective_scan_bwd_ref(*args)
+
+
+def bwd_library(torch, kernel: str, args: tuple, kwargs: dict):
+    """The backward of ``scaled_dot_product_attention`` on the same q, k,
+    v and do (a yardstick only: the port never calls it), else None."""
+    if kernel != "flash_attention_bwd":
+        return None
+    import torch.nn.functional as F
+    q, k, v, do, _lse = args
+    qq, kk, vv = (x.detach().unsqueeze(0).requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv,
+                                         is_causal=kwargs["causal"])
+    dd = do.unsqueeze(0)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), dd,
+                                       retain_graph=True)
+
+
+def bwd_bound_ms(kernel: str, args: tuple, kwargs: dict) -> tuple:
+    """Least time on an H100 for one backward call: the larger of its bytes
+    (each input read once, each output written once) over HBM and its
+    operations over the peak for their type."""
+    from repro_torch.obs import profile
+    size = lambda xs: sum(x.numel() * x.element_size() for x in xs)
+    # the outputs have the shapes and types of the first inputs: dq, dk, dv
+    # of q, k, v; dxi, ddt, dB, dC, da, dh0 of xi, dt, bmat, cmat, a, h0
+    if kernel == "flash_attention_bwd":
+        q, k = args[:2]
+        nbytes = size(args) + size(args[:3])
+        pairs = profile.attention_pairs(q.shape[0], q.shape[1], k.shape[1],
+                                        kwargs["causal"])
+        t_ops = pairs * BWD_PRODUCT_FLOPS * q.shape[2] / \
+            PRODUCT_PEAK["bfloat16"] + pairs * BWD_SOFTMAX_FLOPS / \
+            FP_PEAK["float32"]
+    else:
+        xi, a = args[0], args[4]
+        nbytes = size(args) + size(args[:6])
+        t_ops = xi.numel() * a.shape[1] * SCAN_BWD_FLOPS / FP_PEAK["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else \
+        (t_bytes * 1e3, "bytes")
+
+
+def check_bwd(label: str, kernel: str, got: tuple, want: tuple) -> tuple:
+    """(max |got - want| over the gradients, the worst row's error over its
+    bar); fails on a shape, dtype, non-finite value or a row that breaks
+    the kernel's stated bar (``BWD_TOL``)."""
+    import torch
+    tol, floor, by_row = BWD_TOL[kernel]
+    worst, share = 0.0, 0.0
+    call_max = max(float(w.float().abs().max()) if w.numel() else 0.0
+                   for w in want)
+    for n, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{label}: gradient {n} kernel {tuple(g.shape)} {g.dtype} "
+                 f"vs plain {tuple(w.shape)} {w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{label}: gradient {n} is not finite")
+        width = g.shape[-1] if by_row and g.dim() else max(g.numel(), 1)
+        g2, w2 = g.float().reshape(-1, width), w.float().reshape(-1, width)
+        err = (g2 - w2).abs().amax(1)
+        size = w2.abs().amax(1)
+        scale = float(size.max()) or call_max
+        bar = tol * size + floor * scale
+        bad = (err > bar).nonzero()
+        if len(bad):
+            r = int(bad[0])
+            where = f"row {divmod(r, g.shape[-2])}" if by_row and g.dim() == 3 \
+                else f"row {r}"
+            fail(f"{label}: gradient {n} {where} max |kernel - plain| "
+                 f"{float(err[r]):.3e} breaks {tol} x its max |plain| "
+                 f"{float(size[r]):.3e} + {floor} x the tensor's "
+                 f"{scale:.3e} ({len(bad)} of {len(err)} rows)")
+        nz = bar > 0
+        if bool(nz.any()):
+            share = max(share, float((err[nz] / bar[nz]).max()))
+        worst = max(worst, float(err.max()))
+    return worst, share
+
+
+def measure_bwd_case(torch, ref, ops, kernel, args, kwargs, label,
+                     card) -> dict:
+    """One backward call on the card against autograd of its plain
+    version: error, bit-reproducibility, the kernel's, the plain
+    version's and (attention) SDPA backward's times, per call and from a
+    CUDA graph, and the bound."""
+    fn = ops.BACKWARD_WRAPPERS[kernel]
+    got = fn(*args, **kwargs)
+    again = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{kernel} {label}: two launches differ")
+    want = bwd_plain(ref, kernel, args, kwargs)
+    err, share = check_bwd(f"{kernel} {label}", kernel, got, want)
+    del got, again, want
+    ms = timed_ms(torch, lambda: fn(*args, **kwargs))
+    plain_ms = timed_ms(torch, lambda: bwd_plain(ref, kernel, args, kwargs))
+    lib = bwd_library(torch, kernel, args, kwargs)
+    library_ms = timed_ms(torch, lib) if lib is not None else None
+    g_ms = graph_ms(torch, lambda: fn(*args, **kwargs))
+    lib_g_ms = graph_ms(torch, lib) if lib is not None else None
+    b_ms, b_by = bwd_bound_ms(kernel, args, kwargs)
+    fmt = lambda x: f"{x:.4f} ms" if x is not None else "none"
+    print(f"[train] {kernel} {label}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA backward {fmt(library_ms)}, bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound; graph-replayed "
+          f"kernel {fmt(g_ms)}, SDPA backward {fmt(lib_g_ms)}; max |kernel - "
+          f"plain| {err:.3e}, worst row at {share:.4f} of its bar (tol, "
+          f"floor, by row {BWD_TOL[kernel]}); two launches bit-identical; "
+          f"{card}", flush=True)
+    return dict(label=label, max_abs_err=err, row_share=share, ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                graph_ms=g_ms, library_graph_ms=lib_g_ms)
+
+
+def attn_bwd_args(torch, ops, ref, rng, dev, bh, t, s, d, causal) -> tuple:
+    """q, k, v, do, lse of one attention backward: bf16 inputs from
+    ``rng``, lse from the forward kernel (whose output must be the same
+    bits without the lse, and whose lse must match the plain one)."""
+    mk = lambda n: torch.as_tensor(rng.standard_normal((bh, n, d)),
+                                   dtype=torch.float32).to(dev).bfloat16()
+    q, k, v, do = mk(t), mk(s), mk(s), mk(t)
+    o, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    if not torch.equal(o, ops.flash_attention(q, k, v, causal=causal)):
+        fail(f"flash_attention {bh}x{t}x{s}x{d}: the output changes when "
+             f"the kernel also writes the log-sum-exp")
+    lse_err = float((lse - ref.attention_lse_ref(q, k, causal=causal))
+                    .abs().max())
+    if lse_err > LSE_ATOL:
+        fail(f"flash_attention {bh}x{t}x{s}x{d}: log-sum-exp off by "
+             f"{lse_err:.3e} (atol {LSE_ATOL})")
+    return q, k, v, do, lse
+
+
+def scan_bwd_args(torch, rng, dev, b, t, i, s) -> tuple:
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    return (f(rng.standard_normal((b, t, i))),
+            f(np.abs(rng.standard_normal((b, t, i))) * 0.1),
+            f(rng.standard_normal((b, t, s))), f(rng.standard_normal((b, t, s))),
+            f(-np.abs(rng.standard_normal((i, s)))),
+            f(rng.standard_normal((b, i, s))), f(rng.standard_normal((b, t, i))),
+            f(rng.standard_normal((b, i, s))))
+
+
+def step_grads(model, params, batch) -> tuple:
+    """One step's loss and each leaf's gradient through ``model``."""
+    import torch
+    leaves = list(params.parameters())
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(leaves, grads)]
+
+
+def grad_gaps(params, got, want) -> dict:
+    """The loss's relative gap and the worst leaf's relative gradient gap
+    (Frobenius norm) of one step ``got`` against ``want`` (each from
+    :func:`step_grads` on the same weights and batch)."""
+    (l1, g1), (l2, g2) = got, want
+    gaps = {}
+    for (n, _), a, b in zip(params.named_parameters(), g1, g2):
+        den = float(b.float().norm())
+        gaps[n] = float((a.float() - b.float()).norm()) / den if den else \
+            float(a.float().norm())
+    worst = max(gaps, key=gaps.get)
+    return {"loss": l1, "plain_loss": l2, "loss_rel": abs(l1 - l2) / abs(l2),
+            "worst_leaf": worst, "worst_gap": gaps[worst],
+            "median_gap": statistics.median(gaps.values())}
+
+
+def exact_attention(q, k, v, *, causal: bool):
+    """The exact twin's attention core: the plain version in fp32 (bf16
+    out), differentiated by autograd, behind the kernel path's own
+    ``flash_prefill`` (kv heads expanded, heads folded, remat)."""
+    from repro_torch.kernels import ref
+    return ref.attention_ref(q, k, v, causal=causal)
+
+
+class Recorder(KernelSpans):
+    """Stands in for a kernel wrapper in ``ops`` and keeps a copy of each
+    call's inputs and outputs."""
+
+    def __init__(self, torch, fn):
+        super().__init__(torch, fn)
+        self.calls: list = []
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.append((tuple(a.clone() for a in args), dict(kw),
+                           tuple(o.clone() for o in out)))
+        return out
+
+
+def phase_train(torch, ops, ref, dev, card, configs=None, rng=None) -> dict:
+    """Phase 15: 15.a each backward kernel against its plain version at
+    the full-width shapes of the training path and at ragged ones, timed;
+    15.b per config of ``TRAIN_ARCHS`` (default: full width, depth
+    ``TRAIN_LAYERS``; ``configs`` maps an arch to another config) the
+    ``Trainer`` for ``TRAIN_STEPS`` steps on the synthetic stream with a
+    checkpoint every ``TRAIN_CKPT_EVERY`` (launch counts reset just before
+    and read just after), a run of ``TRAIN_CKPT_EVERY`` steps resumed by a
+    third to the end, one step of the kernel path against the plain twins
+    (and, after training, against the exact twin),
+    the kernels' share of a step and peak memory; 15.c ``python -m
+    repro_torch.launch.train`` in a fresh process.  Returns each backward
+    kernel's training launches and measured cases, and the forward
+    kernels' training launches."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, layers, ssm
+    from repro_torch.obs.profile import PROFILE_ENV
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    os.environ.pop(PROFILE_ENV, None)
+    t_phase = time.perf_counter()
+    rng = rng or np.random.default_rng(15)
+    cuda = dev.type == "cuda"
+    out = {name: {"launches": 0, "cases": []} for name in BWD_KERNELS}
+    out["forward_launches"] = {}
+    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}
+
+    # ---- 15.a the backward kernels against their plain versions ----------
+    for bh, t, s, d, causal, what in ATTN_BWD_CASES:
+        args = attn_bwd_args(torch, ops, ref, rng, dev, bh, t, s, d, causal)
+        out["flash_attention_bwd"]["cases"].append(measure_bwd_case(
+            torch, ref, ops, "flash_attention_bwd", args, {"causal": causal},
+            f"{what} {bh}x{t}x{s}x{d} causal={causal}", card))
+    for b_, t, i, s_st, what in SCAN_BWD_CASES:
+        args = scan_bwd_args(torch, rng, dev, b_, t, i, s_st)
+        out["selective_scan_bwd"]["cases"].append(measure_bwd_case(
+            torch, ref, ops, "selective_scan_bwd", args, {},
+            f"{what} {b_}x{t}x{i}x{s_st}", card))
+    del args
+    if cuda:
+        torch.cuda.empty_cache()
+        print(f"[train] after 15.a this process holds "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of it in live "
+              f"tensors; {card}", flush=True)
+
+    # ---- 15.b the trainer -------------------------------------------------
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for arch, (t_len, kernel) in TRAIN_ARCHS.items():
+        bwd = kernel + "_bwd"
+        cfg = (configs or {}).get(arch) or dataclasses.replace(
+            get_arch(arch), n_layers=TRAIN_LAYERS)
+        tmp = tempfile.mkdtemp(prefix=f"cim-tuner-train-{arch}-")
+        saves: list[float] = []
+
+        def trainer(name, steps):
+            tr = Trainer(cfg, TrainerConfig(
+                steps=steps, seq_len=t_len, global_batch=1,
+                ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=os.path.join(tmp, name),
+                ckpt_keep=1, log_every=1, seed=0,
+                optimizer=AdamWConfig(peak_lr=TRAIN_LR,
+                                      warmup_steps=TRAIN_WARMUP,
+                                      total_steps=TRAIN_STEPS)), dev)
+            save = tr.ckpt.save
+
+            def timed_save(*a, **kw):
+                sync()
+                t0 = time.perf_counter()
+                path = save(*a, **kw)
+                saves.append(time.perf_counter() - t0)
+                return path
+            tr.ckpt.save = timed_save
+            return tr
+
+        # the trainer's starting weights (seed 0): one step of the kernel
+        # path against the plain twins, held (the regime of the rehearsal)
+        kernel_model = build_model(cfg)
+        plain_model = build_model(cfg, attention=layers.attention_any,
+                                  scan=ssm.plain_scan)
+        full = trainer("full", TRAIN_STEPS)
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in full.stream.global_batch_at(0).items()}
+        # the exact twin: the kernel path with each kernel's plain fp32
+        # version under autograd in its place (attention), or the plain
+        # twins where they already compute in fp32 (the scans)
+        exact_model = build_model(cfg, attention=functools.partial(
+            layers.flash_prefill, kernel=exact_attention)) \
+            if kernel == "flash_attention" else plain_model
+        params = kernel_model.init(0, dev, trainable=True)
+        gap = grad_gaps(params, step_grads(kernel_model, params, batch),
+                        step_grads(plain_model, params, batch))
+        del params
+        if gap["loss_rel"] > TRAIN_LOSS_TOL or \
+                gap["worst_gap"] > TRAIN_GRAD_TOL:
+            fail(f"{arch} 15.b: kernel path against plain twins {gap} breaks "
+                 f"loss {TRAIN_LOSS_TOL} / gradient {TRAIN_GRAD_TOL}")
+
+        # the uninterrupted run, counted
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches(ops)
+        sync()
+        t0 = time.perf_counter()
+        params, opt = full.train(log=lambda s: None)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        n_params = sum(p.numel() for p in params.parameters())
+        want = {k: 0 for k in launches}
+        want[kernel] = 2 * cfg.n_layers * TRAIN_STEPS     # forward + remat
+        want[bwd] = cfg.n_layers * TRAIN_STEPS
+        if launches != want:
+            fail(f"{arch} 15.b: launches {launches}, expected {want}")
+        out[bwd]["launches"] += launches[bwd]
+        out["forward_launches"][kernel] = launches[kernel]
+        hist = full.history
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(x) for x in losses) or \
+                any(r["skipped"] for r in hist):
+            fail(f"{arch} 15.b: losses {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"{arch} 15.b: the loss did not fall: {losses}")
+        if full.ckpt.latest_step() != TRAIN_STEPS:
+            fail(f"{arch} 15.b: no checkpoint at step {TRAIN_STEPS}")
+        steps_s = [r["sec_per_step"] for r in hist[1:]]
+        sec = statistics.median(steps_s)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        del params, opt
+        shutil.rmtree(os.path.join(tmp, "full"), ignore_errors=True)
+
+        # interrupted after TRAIN_CKPT_EVERY steps, resumed to the end; the
+        # resumed run's kernel launches timed by CUDA events
+        trainer("resumed", TRAIN_CKPT_EVERY).train(log=lambda s: None)
+        resumed = trainer("resumed", TRAIN_STEPS)
+        spans = {kernel: KernelSpans(torch, getattr(ops, kernel)),
+                 bwd: KernelSpans(torch, getattr(ops, bwd))}
+        saved = {k: getattr(ops, k) for k in spans}
+        for k, sp in spans.items():
+            setattr(ops, k, sp)
+        try:
+            t0 = time.perf_counter()
+            params, opt = resumed.train(log=lambda s: None)
+            sync()
+            resume_wall = time.perf_counter() - t0
+            del opt
+        finally:
+            for k, fn in saved.items():
+                setattr(ops, k, fn)
+        kernel_ms = {k: sp.ms() for k, sp in spans.items()}
+        # the spans keep copies of inputs, scattered over the allocator's
+        # segments: let them go, so that 15.c's process gets the memory
+        del spans
+        rhist = resumed.history
+        if [r["step"] for r in rhist] != list(
+                range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)):
+            fail(f"{arch} 15.b: the resumed run ran steps "
+                 f"{[r['step'] for r in rhist]}")
+        gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(rhist, hist[TRAIN_CKPT_EVERY:])]
+        if max(gaps) > RESUME_RTOL:
+            fail(f"{arch} 15.b: resumed losses {[r['loss'] for r in rhist]} "
+                 f"vs uninterrupted {losses[TRAIN_CKPT_EVERY:]}")
+        step_ms = sum(r["sec_per_step"] for r in rhist) * 1e3
+        shutil.rmtree(tmp, ignore_errors=True)
+
+        # the trained weights: one step through the kernel path, held
+        # against the exact twin (a fault in or around the kernels -- the
+        # kv-head expansion's backward, the saved lse, remat -- moves a
+        # gradient by about its own size) and the plain twins, with each
+        # of its backward launches held against autograd of the kernel's
+        # plain version on the launch's own inputs
+        rec = Recorder(torch, getattr(ops, bwd))
+        setattr(ops, bwd, rec)
+        try:
+            k_step = step_grads(kernel_model, params, batch)
+        finally:
+            setattr(ops, bwd, rec.fn)
+        if len(rec.calls) != cfg.n_layers:
+            fail(f"{arch} 15.b: {len(rec.calls)} {bwd} launches in one step")
+        checks = [check_bwd(f"{arch} 15.b trained step, launch {n}", bwd, got,
+                            bwd_plain(ref, bwd, a, kw))
+                  for n, (a, kw, got) in enumerate(rec.calls)]
+        path_err = max(c[0] for c in checks)
+        path_share = max(c[1] for c in checks)
+        del rec
+        p_step = step_grads(plain_model, params, batch)
+        gap_trained = grad_gaps(params, k_step, p_step)
+        if exact_model is plain_model:
+            gap_exact, gap_twins = gap_trained, None
+        else:
+            e_step = step_grads(exact_model, params, batch)
+            gap_exact = grad_gaps(params, k_step, e_step)
+            gap_twins = grad_gaps(params, p_step, e_step)
+            del e_step
+        del k_step, p_step, params, batch
+        for what, g in (("exact twin", gap_exact),
+                        ("plain twins", gap_trained)):
+            if g["loss_rel"] > TRAIN_LOSS_TOL or \
+                    g["worst_gap"] > TRAIN_GRAD_TOL:
+                fail(f"{arch} 15.b: after {TRAIN_STEPS} steps the kernel "
+                     f"path against the {what} {g} breaks loss "
+                     f"{TRAIN_LOSS_TOL} / gradient {TRAIN_GRAD_TOL}")
+        print(f"[train] {arch} depth {cfg.n_layers}, d {cfg.d_model}, "
+              f"{n_params:,} parameters (fp32 masters), 1 x {t_len} tokens a "
+              f"step: {TRAIN_STEPS} steps in {wall:.2f} s, losses "
+              f"{[round(x, 4) for x in losses]}; sec_per_step {sec:.4f} "
+              f"(median of steps 2-{TRAIN_STEPS}), {t_len / sec:.1f} tokens/s; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+              f" = {2 * cfg.n_layers} {kernel} (forward + remat) and "
+              f"{cfg.n_layers} {bwd} a step; peak memory {peak:.2f} GiB; "
+              f"{card}", flush=True)
+        print(f"[train] {arch} resumed at step {TRAIN_CKPT_EVERY} to "
+              f"{TRAIN_STEPS} in {resume_wall:.2f} s: losses "
+              f"{[round(r['loss'], 4) for r in rhist]}, max relative gap to "
+              f"the uninterrupted run {max(gaps):.3e} (bar {RESUME_RTOL}); "
+              f"checkpoint saves {[round(x, 2) for x in saves]} s; kernels "
+              f"by CUDA events over its {len(rhist)} steps: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in kernel_ms.items())
+              + f" = {sum(kernel_ms.values()) / step_ms:.4f} of the steps' "
+              f"{step_ms:.1f} ms; {card}", flush=True)
+        print(f"[train] {arch} one step, kernel path against the plain twins "
+              f"on the same weights and batch: at the starting weights loss "
+              f"{gap['loss']:.5f} vs {gap['plain_loss']:.5f} (relative gap "
+              f"{gap['loss_rel']:.3e}, bar {TRAIN_LOSS_TOL}), worst leaf "
+              f"gradient gap {gap['worst_gap']:.4f} at {gap['worst_leaf']} "
+              f"(bar {TRAIN_GRAD_TOL}), median {gap['median_gap']:.4f}; "
+              f"{card}", flush=True)
+        twins = "" if gap_twins is None else (
+            f"; the plain twins against the exact twin: worst leaf "
+            f"{gap_twins['worst_gap']:.4f} at {gap_twins['worst_leaf']}, "
+            f"median {gap_twins['median_gap']:.4f}")
+        exact_what = "the plain twins (fp32 scans)" if gap_twins is None \
+            else "fp32 attention by autograd behind flash_prefill"
+        print(f"[train] {arch} after {TRAIN_STEPS} steps, one step of the "
+              f"kernel path against the exact twin ({exact_what}): loss gap "
+              f"{gap_exact['loss_rel']:.3e} (bar {TRAIN_LOSS_TOL}), worst "
+              f"leaf gradient gap {gap_exact['worst_gap']:.4f} at "
+              f"{gap_exact['worst_leaf']} (bar {TRAIN_GRAD_TOL}), median "
+              f"{gap_exact['median_gap']:.4f}; against the plain twins "
+              f"worst leaf {gap_trained['worst_gap']:.4f} at "
+              f"{gap_trained['worst_leaf']}, median "
+              f"{gap_trained['median_gap']:.4f}{twins}; that step's "
+              f"{cfg.n_layers} {bwd} launches against autograd of the plain "
+              f"version on their own inputs: max |kernel - plain| "
+              f"{path_err:.3e}, worst row at {path_share:.4f} of its bar "
+              f"{BWD_TOL[bwd]}; {card}", flush=True)
+        out[arch] = dict(sec_per_step=sec, tokens_per_s=t_len / sec,
+                         peak_gib=peak, losses=losses,
+                         resume_gap=max(gaps), kernel_share=sum(
+                             kernel_ms.values()) / step_ms,
+                         trained_gap=gap_trained["worst_gap"],
+                         exact_gap=gap_exact["worst_gap"],
+                         path_err=path_err, path_share=path_share, **gap)
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # ---- 15.c the CLI -------------------------------------------------------
+    # the fresh process needs the card's memory: this one lets go of its
+    # cached blocks first and reports what it still holds
+    import gc
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2**30 if cuda else 0.0
+    live = torch.cuda.memory_allocated() / 2**30 if cuda else 0.0
+    arch, (t_len, _) = next(iter(TRAIN_ARCHS.items()))
+    tmp = tempfile.mkdtemp(prefix="cim-tuner-train-cli-")
+    cmd = ["--arch", arch, "--steps", "4", "--batch", "1", "--seq",
+           str(t_len), "--ckpt-dir", tmp]
+    cmd += ["--set", f"n_layers={TRAIN_LAYERS}"] if not configs else \
+        ["--smoke", "--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *cmd], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines or \
+            not lines[0].startswith("step     1 loss") or \
+            not lines[-1].startswith("straggler steps:"):
+        fail(f"launch.train exited {proc.returncode}:\n{proc.stdout}\n"
+             f"{proc.stderr}")
+    print(f"[train] 15.c python -m repro_torch.launch.train {' '.join(cmd)}: "
+          f"exit 0 in {time.perf_counter() - t0:.2f} s (this process holding "
+          f"{held:.2f} GiB, {live:.2f} GiB of it in live tensors); printed: "
+          + " | ".join(lines) + f"; {card}", flush=True)
+    print(f"[train] phase 15 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+    return out
+
+
 def main() -> None:
     import tempfile
 
@@ -2056,7 +2686,9 @@ def main() -> None:
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels import cim_matmul as cm_k
         from repro_torch.kernels import flash_attention as fa_k
+        from repro_torch.kernels import flash_attention_bwd as fab_k
         from repro_torch.kernels import selective_scan as ss_k
+        from repro_torch.kernels import selective_scan_bwd as ssb_k
         from repro_torch.kernels import strategy_eval as se
     except ImportError as e:
         fail(f"the port is not importable from {ROOT / 'src'}: {e}")
@@ -2074,11 +2706,15 @@ def main() -> None:
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     variant_proc, variant_lib = start_fmad_variant(se, build)
-    # slice 2's libraries build meanwhile, one nvcc each (read in phase 7)
+    # slice 2's libraries build meanwhile, one nvcc each (read in phase 7),
+    # and the training path's backward kernels (read in phase 15)
     new_libs = [cm_k, fa_k, ss_k]
-    pool = concurrent.futures.ThreadPoolExecutor(len(new_libs))
+    bwd_libs = [fab_k, ssb_k]
+    pool = concurrent.futures.ThreadPoolExecutor(len(new_libs) + len(bwd_libs))
     new_builds = [pool.submit(build.build, m.SOURCE, m.NVCC_FLAGS)
                   for m in new_libs]
+    bwd_builds = [pool.submit(build.build, m.SOURCE, m.NVCC_FLAGS)
+                  for m in bwd_libs]
     se.build()
     lib_s = time.perf_counter() - t0
     variant_out, _ = variant_proc.communicate()
@@ -2659,6 +3295,14 @@ def main() -> None:
     # ---- 14. serve: yi-6b and falcon-mamba-7b at full width and depth ----
     serve = phase_serve(torch, ops, ref, dev, card)
 
+    # ---- 15. train: yi-6b and falcon-mamba-7b at full width, depth 8 -------
+    for m, fut in zip(bwd_libs, bwd_builds):
+        lib = fut.result()
+        print(f"[build] {lib.name} (started in phase 2): "
+              f"{ptxas_summary(build.ptxas_report(m.SOURCE, m.NVCC_FLAGS))}; "
+              f"full report in {lib.name}.ptxas.txt")
+    train = phase_train(torch, ops, ref, dev, card)
+
     t32 = timing["float32"]
     new_lines = []
     for name, (source, replaces) in NEW_KERNELS.items():
@@ -2677,8 +3321,25 @@ def main() -> None:
             "shape": first["label"],
             "calibration_launches": cal_launches[name],
             **({"serve_launches": on_path["launches"],
-                "serve_cases": on_path["cases"]} if on_path else {}),
+                "serve_cases": on_path["cases"],
+                "train_launches": train["forward_launches"][name]}
+               if on_path else {}),
             "cases": new_cases[name]})
+    for name, (source, replaces, forward) in BWD_KERNELS.items():
+        # the training path's launches (15.b); its full-width case first
+        first = train[name]["cases"][0]
+        new_lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": train[name]["launches"],
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+            "differentiates": forward,
+            "note": "no TPU counterpart: the reference differentiates jnp "
+                    "(src/repro/models/layers.py:130-192, "
+                    "src/repro/models/ssm.py:96-132)",
+            "design": BWD_DESIGNS[name], "shape": first["label"],
+            "cases": train[name]["cases"]})
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,

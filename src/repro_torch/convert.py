@@ -130,10 +130,9 @@ def _layers(stack: dict, pattern: tuple[str, ...], n_layers: int) -> list:
                   for i, kind in enumerate(pattern[:rem])]
 
 
-def lm_params(np_tree: dict, cfg, device="cpu") -> tf.ParamTree:
-    """The reference's ``lm_init`` pytree (numpy leaves, groups stacked
-    [G, ...]) as the port's parameters on ``device``, each leaf in the
-    dtype the port keeps it in (``transformer.storage_dtype``)."""
+def _lm_tree(np_tree: dict, cfg) -> dict:
+    """The reference's LM pytree (groups stacked [G, ...]) in the port's
+    layout (one tree per layer, in layer order), leaves as they were."""
     tree = {k: v for k, v in np_tree.items() if k not in ("stack", "encoder")}
     tree["stack"] = {"layers": _layers(np_tree["stack"], cfg.pattern,
                                        cfg.n_layers)}
@@ -143,14 +142,42 @@ def lm_params(np_tree: dict, cfg, device="cpu") -> tf.ParamTree:
             "pos": enc["pos"], "ln_final": enc["ln_final"],
             "stack": {"layers": _layers(enc["stack"], ("enc_self",),
                                         cfg.encoder_layers)}}
+    return tree
 
-    def leaves(t):
-        if isinstance(t, dict):
-            return {k: leaves(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [leaves(v) for v in t]
-        return _tensor(t, device).float()
-    return tf.ParamTree(tf.to_storage(leaves(tree), cfg))
+
+def _leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params(np_tree: dict, cfg, device="cpu",
+              trainable: bool = False) -> tf.ParamTree:
+    """The reference's ``lm_init`` pytree (numpy leaves, groups stacked
+    [G, ...]) as the port's parameters on ``device``: each leaf in the
+    dtype the port serves it in (``transformer.storage_dtype``), or, with
+    ``trainable``, fp32 as the reference trains it, requiring gradients.
+    The same function carries a gradient pytree of the parameters across
+    (``trainable=True``), leaf for leaf."""
+    tree = _leaves(lambda x: _tensor(x, device).float(),
+                   _lm_tree(np_tree, cfg))
+    if trainable:
+        return tf.ParamTree(tree, trainable=True)
+    return tf.ParamTree(tf.to_storage(tree, cfg))
+
+
+def adamw_state(np_state: dict, cfg, device="cpu") -> dict:
+    """The reference's AdamW state (``{"m", "v", "step"}``, the moments
+    pytrees shaped as the parameters) as the port's: the moments as lists
+    in the order of the port's ``ParamTree.parameters()`` (fp32), the step
+    an int."""
+    def flat(np_tree):
+        return [p.detach() for p in lm_params(np_tree, cfg, device,
+                                               trainable=True).parameters()]
+    return {"m": flat(np_state["m"]), "v": flat(np_state["v"]),
+            "step": int(np.asarray(np_state["step"]))}
 
 
 def lm_cache(np_tree: dict, cfg, device="cpu") -> dict:

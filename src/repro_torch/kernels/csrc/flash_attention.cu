@@ -81,8 +81,9 @@ constexpr size_t smem_floats() {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int T_len, int S_len,
-             float scale, int causal) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int T_len, int S_len, float scale,
+             int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                               // [BQ][D+1]
   float* KV = Qs + BQ * (D + 1);                  // Kt [D][BK+1] | Vs [BK][D]
@@ -222,12 +223,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CD; ++j)
       ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * T_len + q0 + r] = m_s[r] + logf(denom);
   }
 }
 
 template <typename T, int D, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int T_len, int S_len, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int BH, int T_len, int S_len, float scale, int causal,
+           cudaStream_t stream) {
   const size_t smem = smem_floats<D, BQ, BK>() * sizeof(float);
   auto kern = flash_kernel<T, D, BQ, BK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -235,17 +239,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   const dim3 grid((T_len + BQ - 1) / BQ, BH);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), T_len, S_len, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S_len, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int d, int bq, int bk, const void* q, const void* k,
-             const void* v, void* o, int BH, int T_len, int S_len, float scale,
-             int causal, cudaStream_t stream) {
+             const void* v, void* o, float* lse, int BH, int T_len, int S_len,
+             float scale, int causal, cudaStream_t stream) {
 #define FA_TILE(D_, BQ_, BK_)                                                 \
   if (d == D_ && bq == BQ_ && bk == BK_)                                      \
-    return launch<T, D_, BQ_, BK_>(q, k, v, o, BH, T_len, S_len, scale,       \
+    return launch<T, D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, scale,  \
                                    causal, stream);
   FA_TILE(64, 128, 128)
   FA_TILE(64, 128, 64)
@@ -266,6 +271,7 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int WG = 128;                      // threads of a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D, int BQ, int BK>
 struct Tile {
@@ -408,8 +414,8 @@ template <int D, int BQ, int BK>
 __device__ __forceinline__ void consume(
     const uint8_t* q_s, const uint8_t* k_s, const uint8_t* v_s,
     uint64_t* q_full, uint64_t* k_full, uint64_t* v_full, uint64_t* kv_empty,
-    bf16* __restrict__ o, int bh, int q0, int n_kv, int T_len, int S_len,
-    float scale, int causal, int wg) {
+    bf16* __restrict__ o, float* __restrict__ lse, int bh, int q0, int n_kv,
+    int T_len, int S_len, float scale, int causal, int wg) {
   using T = Tile<D, BQ, BK>;
   constexpr int S = T::STAGES, KS = T::KS, R = BK / KS;
   const int lane = threadIdx.x % 32, w = (threadIdx.x % WG) / 32;
@@ -474,6 +480,10 @@ __device__ __forceinline__ void consume(
     const float denom = fmaxf(l, 1e-30f);
     const int q = q0 + row + 8 * i;
     if (q >= T_len) continue;
+    // the row's natural-log log-sum-exp of the scaled scores (m_r is in
+    // log2 units), for the backward pass
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<size_t>(bh) * T_len + q] = (m_r[i] + log2f(denom)) * LN2;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(
@@ -488,7 +498,8 @@ __global__ void __launch_bounds__(Tile<D, BQ, BK>::THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-             int T_len, int S_len, float scale, int causal) {
+             float* __restrict__ lse, int T_len, int S_len, float scale,
+             int causal) {
   using T = Tile<D, BQ, BK>;
   constexpr int S = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -532,13 +543,14 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     consume<D, BQ, BK>(q_s, k_s, v_s, q_full, k_full, v_full, kv_empty, o,
-                       bh, q0, n_kv, T_len, S_len, scale, causal, wg);
+                       lse, bh, q0, n_kv, T_len, S_len, scale, causal, wg);
   }
 }
 
 template <int D, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int T_len, int S_len, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int BH, int T_len, int S_len, float scale, int causal,
+           cudaStream_t stream) {
   using T = Tile<D, BQ, BK>;
   CUtensorMap q_map, k_map, v_map;
   const uint64_t strides[2] = {static_cast<uint64_t>(D) * 2,
@@ -559,18 +571,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
                        static_cast<int>(T::SMEM));
   const dim3 grid(BH, (T_len + BQ - 1) / BQ);
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(q_map, k_map, v_map,
-                                              static_cast<bf16*>(o), T_len,
-                                              S_len, scale * LOG2E, causal);
+                                              static_cast<bf16*>(o), lse,
+                                              T_len, S_len, scale * LOG2E,
+                                              causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(int d, int bq, int bk, const void* q, const void* k,
-             const void* v, void* o, int BH, int T_len, int S_len, float scale,
-             int causal, cudaStream_t stream) {
+             const void* v, void* o, float* lse, int BH, int T_len, int S_len,
+             float scale, int causal, cudaStream_t stream) {
 #define FA_TC_TILE(D_, BQ_, BK_)                                              \
   if (d == D_ && bq == BQ_ && bk == BK_)                                      \
-    return launch<D_, BQ_, BK_>(q, k, v, o, BH, T_len, S_len, scale, causal,  \
-                                stream);
+    return launch<D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, scale,     \
+                                causal, stream);
   FA_TC_TILE(64, 128, 128)
   FA_TC_TILE(64, 128, 64)
   FA_TC_TILE(64, 64, 128)
@@ -591,21 +604,26 @@ extern "C" {
 
 // q [BH, T, d], k, v [BH, S, d] -> o [BH, T, d], all of one dtype (0:
 // float32, 1: bfloat16, with 16-byte-aligned bases for TMA), contiguous;
-// d in {64, 128}, bq and bk in {64, 128}.  Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// d in {64, 128}, bq and bk in {64, 128}.  With a non-null `lse` it also
+// writes each row's log-sum-exp of the scaled, masked scores, fp32 [BH, T]
+// (o is the same with or without it).  Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
 int flash_attention(int dtype, int d, int bq, int bk, const void* q,
                     const void* k, const void* v, void* o, int BH, int T_len,
-                    int S_len, float scale, int causal, void* stream) {
+                    int S_len, float scale, int causal, void* lse,
+                    void* stream) {
   if (BH == 0 || T_len == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  auto lse_f = static_cast<float*>(lse);
+  if (S_len == 0 && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(d, bq, bk, q, k, v, o, BH, T_len, S_len, scale,
-                           causal, s);
+    return dispatch<float>(d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len,
+                           scale, causal, s);
   if (dtype == 1 && S_len == 0)   // no keys: acc / max(l, 1e-30) = 0
     return static_cast<int>(cudaMemsetAsync(
         o, 0, static_cast<size_t>(BH) * T_len * d * sizeof(__nv_bfloat16), s));
   if (dtype == 1)
-    return tc::dispatch(d, bq, bk, q, k, v, o, BH, T_len, S_len, scale,
+    return tc::dispatch(d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len, scale,
                         causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,7 +32,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE, NVCC_FLAGS)
     lib.flash_attention.argtypes = [ctypes.c_int] * 4 + [
         ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.flash_attention.restype = ctypes.c_int
     return lib
 
@@ -46,10 +46,13 @@ def check_tiling(bq: int, bk: int) -> None:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, bq: int = 128,
-           bk: int = 128) -> torch.Tensor:
+           causal: bool = True, bq: int = 128, bk: int = 128,
+           return_lse: bool = False):
     """One kernel launch on the current CUDA stream: ``q`` [BH, T, d]
-    against ``k``, ``v`` [BH, S, d], all float32 or all bfloat16."""
+    against ``k``, ``v`` [BH, S, d], all float32 or all bfloat16.  With
+    ``return_lse`` it returns (out, lse), lse [BH, T] float32 the row
+    log-sum-exp of the scaled, masked scores that the backward kernel
+    takes (``out`` is the same either way)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -69,12 +72,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype == torch.bfloat16:      # TMA reads from 16-byte-aligned bases
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
                    for x in (q, k, v))
+    if return_lse and s == 0:
+        raise ValueError("a log-sum-exp needs S >= 1")
     out = torch.empty_like(q)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention(
             DTYPES[q.dtype], d, bq, bk, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), bh, t, s, 1.0 / math.sqrt(d),
-            int(causal), _build.stream_of(q))
+            int(causal), lse.data_ptr() if return_lse else None,
+            _build.stream_of(q))
     _build.check_launch(lib, "flash_attention", err)
-    return out
+    return (out, lse) if return_lse else out

@@ -12,6 +12,13 @@ and are wrapped by :func:`repro_torch.obs.profile.instrument`: with
 ``CIM_TUNER_PROFILE`` set, every call is timed to completion and recorded
 into the ``cim_kernel_*`` metric families per (kernel, shape bucket).
 ``job_objective`` is the engine's batched evaluator.
+
+Training differentiates through two of them: ``flash_attention_bwd`` and
+``selective_scan_bwd`` are the wrappers of their hand-written backward
+kernels (:data:`BACKWARD_WRAPPERS`), and :class:`FlashAttention` and
+:class:`SelectiveScan` are the ``torch.autograd.Function``s whose forward
+and backward launch the kernels on the card (and run the plain versions,
+the backward by autograd of them, on the CPU).
 """
 from __future__ import annotations
 
@@ -23,8 +30,10 @@ from repro_torch.core import cost_model
 from repro_torch.core.cost_model import JobParams
 from repro_torch.kernels import cim_matmul as _cm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
+from repro_torch.kernels import selective_scan_bwd as _ssb
 from repro_torch.kernels import strategy_eval as _se
 from repro_torch.obs import profile as _profile
 
@@ -102,14 +111,18 @@ def _cim_matmul(a: torch.Tensor, b: torch.Tensor, *, tiling: str = "AF",
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, bq: int = 128,
-                     bk: int = 128) -> torch.Tensor:
+                     causal: bool = True, bq: int = 128, bk: int = 128,
+                     return_lse: bool = False):
     """Softmax attention of ``q`` [BH, T, d] over ``k``, ``v`` [BH, S, d]
-    with ``bq`` x ``bk`` tiles; causal is top-left."""
+    with ``bq`` x ``bk`` tiles; causal is top-left.  With ``return_lse``,
+    (out, the rows' log-sum-exp [BH, T] float32)."""
     _fa.check_tiling(bq, bk)
     if _route(q) == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal)
-    out = _fa.launch(q, k, v, causal=causal, bq=bq, bk=bk)
+        out = ref.attention_ref(q, k, v, causal=causal)
+        return (out, ref.attention_lse_ref(q, k, causal=causal)) \
+            if return_lse else out
+    out = _fa.launch(q, k, v, causal=causal, bq=bq, bk=bk,
+                     return_lse=return_lse)
     flash_attention.launches += 1
     return out
 
@@ -123,6 +136,75 @@ def _selective_scan(xi, dt, bmat, cmat, a, h0, *, ct: int = _ss.DEFAULT_CT,
     out = _ss.launch(xi, dt, bmat, cmat, a, h0, ct=ct, ci=ci)
     selective_scan.launches += 1
     return out
+
+
+def flash_attention_bwd(q, k, v, do, lse, *, causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention` against its output's
+    gradient ``do``, given the forward's log-sum-exp ``lse`` (bf16 on the
+    card; the plain version needs no ``lse``).  One call counts one launch
+    (the kernel is three launches on the card)."""
+    if _route(q) == "cpu":
+        return ref.attention_bwd_ref(q, k, v, do, causal=causal)
+    out = _fab.launch(q, k, v, do, lse, causal=causal)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+def selective_scan_bwd(xi, dt, bmat, cmat, a, h0, dy, dh_last):
+    """(dxi, ddt, dB, dC, da, dh0) of :func:`selective_scan` against the
+    gradients ``dy`` of y and ``dh_last`` of h_last (float32 on the card).
+    One call counts one launch (the kernel is two launches on the card)."""
+    if _route(xi) == "cpu":
+        return ref.selective_scan_bwd_ref(xi, dt, bmat, cmat, a, h0, dy,
+                                          dh_last)
+    out = _ssb.launch(xi, dt, bmat, cmat, a, h0, dy, dh_last)
+    selective_scan_bwd.launches += 1
+    return out
+
+
+flash_attention_bwd.launches = 0
+selective_scan_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable :func:`flash_attention` (``q`` [BH, T, d], ``k``,
+    ``v`` [BH, S, d]): the forward kernel, which also writes the rows'
+    log-sum-exp when a gradient is needed, and :func:`flash_attention_bwd`
+    for the backward.  ``FlashAttention.apply(q, k, v, causal)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention(q, k, v, causal=causal)
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(), lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+class SelectiveScan(torch.autograd.Function):
+    """Differentiable :func:`selective_scan`:
+    ``SelectiveScan.apply(xi, dt, bmat, cmat, a, h0)`` returns (y,
+    h_last); the backward is :func:`selective_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, xi, dt, bmat, cmat, a, h0):
+        y, h_last = selective_scan(xi, dt, bmat, cmat, a, h0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(xi, dt, bmat, cmat, a, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return selective_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                  dh_last.contiguous())
 
 
 # shape-bucket labels for the cim_kernel_* series (the reference's)
@@ -157,3 +239,6 @@ KERNEL_WRAPPERS = {"cim_matmul": cim_matmul,
                    "flash_attention": flash_attention,
                    "selective_scan": selective_scan,
                    "strategy_eval": strategy_eval}
+#: the wrappers of the backward kernels (the training path's)
+BACKWARD_WRAPPERS = {"flash_attention_bwd": flash_attention_bwd,
+                     "selective_scan_bwd": selective_scan_bwd}

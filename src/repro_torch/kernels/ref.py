@@ -59,29 +59,36 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *,
     return out
 
 
+def _wide(x: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: float32, or float64 for
+    float64 inputs (the gradient checks run there)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """Naive softmax attention in float32, out in q's dtype.  q [BH, T, d],
-    k, v [BH, S, d]; causal masks key j for query i when j > i
-    (top-left) with -1e30."""
+    """Naive softmax attention in float32 (float64 for float64 inputs),
+    out in q's dtype.  q [BH, T, d], k, v [BH, S, d]; causal masks key j
+    for query i when j > i (top-left) with -1e30."""
     d = q.shape[-1]
-    s = torch.einsum("btd,bsd->bts", q.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(d)
+    f = _wide(q)
+    s = torch.einsum("btd,bsd->bts", q.to(f), k.to(f)) / math.sqrt(d)
     if causal:
         t, s_len = s.shape[-2], s.shape[-1]
         keep = torch.arange(s_len, device=q.device)[None, :] <= \
             torch.arange(t, device=q.device)[:, None]
         s = torch.where(keep[None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bts,bsd->btd", p, v.to(torch.float32)).to(q.dtype)
+    return torch.einsum("bts,bsd->btd", p, v.to(f)).to(q.dtype)
 
 
 def selective_scan_ref(xi, dt, bmat, cmat, a, h0):
-    """The Mamba-1 recurrence in float32, one time step after another:
-    ``h = exp(dt a) h + (dt xi) B_t``, ``y_t = h . C_t``.  xi, dt [B, T, I],
-    bmat, cmat [B, T, S], a [I, S], h0 [B, I, S].  Returns (y [B, T, I] in
-    xi's dtype, h_last [B, I, S] in h0's dtype)."""
-    f = torch.float32
+    """The Mamba-1 recurrence in float32 (float64 for float64 inputs), one
+    time step after another: ``h = exp(dt a) h + (dt xi) B_t``,
+    ``y_t = h . C_t``.  xi, dt [B, T, I], bmat, cmat [B, T, S], a [I, S],
+    h0 [B, I, S].  Returns (y [B, T, I] in xi's dtype, h_last [B, I, S] in
+    h0's dtype)."""
+    f = _wide(xi)
     xi32, dt32 = xi.to(f), dt.to(f)
     b32, c32, a32 = bmat.to(f), cmat.to(f), a.to(f)
     h = h0.to(f)
@@ -93,3 +100,46 @@ def selective_scan_ref(xi, dt, bmat, cmat, a, h0):
         ys.append((h * c32[:, t, None, :]).sum(-1))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xi32)
     return y.to(xi.dtype), h.to(h0.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked scores (masked
+    with -1e30 as :func:`attention_ref`), float32 [BH, T]: what the
+    ``flash_attention`` kernel writes for the backward pass."""
+    d = q.shape[-1]
+    f = _wide(q)
+    s = torch.einsum("btd,bsd->bts", q.to(f), k.to(f)) / math.sqrt(d)
+    if causal:
+        t, s_len = s.shape[-2], s.shape[-1]
+        keep = torch.arange(s_len, device=q.device)[None, :] <= \
+            torch.arange(t, device=q.device)[:, None]
+        s = torch.where(keep[None], s, torch.full_like(s, -1e30))
+    return torch.logsumexp(s, dim=-1)
+
+
+def _vjp(fn, inputs: tuple, cotangents: tuple) -> tuple:
+    """The gradients of ``fn(*inputs)``'s outputs against ``cotangents``
+    with respect to each input, by autograd on detached copies."""
+    with torch.enable_grad():
+        xs = tuple(x.detach().requires_grad_() for x in inputs)
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(outs, xs, cotangents, allow_unused=True)
+
+
+def attention_bwd_ref(q, k, v, do, *, causal: bool = True):
+    """(dq, dk, dv) of :func:`attention_ref` against the output gradient
+    ``do``, in the inputs' dtypes: autograd of the plain version (the
+    ``flash_attention_bwd`` kernel's function; it needs no ``o`` or
+    log-sum-exp)."""
+    return _vjp(lambda q_, k_, v_: attention_ref(q_, k_, v_, causal=causal),
+                (q, k, v), (do,))
+
+
+def selective_scan_bwd_ref(xi, dt, bmat, cmat, a, h0, dy, dh_last):
+    """(dxi, ddt, dB, dC, da, dh0) of :func:`selective_scan_ref` against
+    the gradients ``dy`` of y and ``dh_last`` of h_last: autograd of the
+    plain version (the ``selective_scan_bwd`` kernel's function)."""
+    return _vjp(selective_scan_ref, (xi, dt, bmat, cmat, a, h0),
+                (dy, dh_last))

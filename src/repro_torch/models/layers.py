@@ -287,16 +287,22 @@ def attention_any(
     return streaming_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def _flash_autograd(q, k, v, *, causal: bool) -> torch.Tensor:
+    return ops.FlashAttention.apply(q, k, v, causal)
+
+
 def flash_prefill(q, k, v, *, causal: bool, window: int | None,
                   kernel=None) -> torch.Tensor:
     """Prefill self-attention through the ``flash_attention`` kernel.
 
     ``kernel`` has ``ops.flash_attention``'s signature (``q`` [BH, T, d],
-    ``k``, ``v`` [BH, S, d]).  Left as None, it is that wrapper for CUDA
-    tensors, and for CPU tensors the whole call is :func:`attention_any`,
-    the reference's branches.  The kernel takes self-attention at
-    ``t > 1`` with no window or ``t <= window`` (where the window masks
-    nothing); a longer windowed prefill is :func:`local_chunk_attention`.
+    ``k``, ``v`` [BH, S, d]).  Left as None, it is the differentiable
+    ``ops.FlashAttention`` (the forward kernel, and the backward kernel
+    when a gradient is taken) for CUDA tensors, and for CPU tensors the
+    whole call is :func:`attention_any`, the reference's branches.  The
+    kernel takes self-attention at ``t > 1`` with no window or ``t <=
+    window`` (where the window masks nothing); a longer windowed prefill
+    is :func:`local_chunk_attention`.
     kv heads are expanded as ``_expand_kv`` does and the heads folded into
     the batch, bf16 and contiguous; the output is bf16 [B, T, H, dh] as
     the reference's.  A head width the kernel is not built for raises.
@@ -305,7 +311,7 @@ def flash_prefill(q, k, v, *, causal: bool, window: int | None,
     if kernel is None:
         if q.device.type != "cuda":
             return attention_any(q, k, v, causal=causal, window=window)
-        kernel = ops.flash_attention
+        kernel = _flash_autograd
     if t == 1 or k.shape[1] != t or (window is not None and t > window):
         return attention_any(q, k, v, causal=causal, window=window)
     if dh not in _fa.HEAD_DIMS:

@@ -23,8 +23,9 @@ MOE_AUX_COEF = 0.01
 
 class Model:
     """The functions of one architecture over its parameters (a
-    :class:`~repro_torch.models.transformer.ParamTree`).  Every call runs
-    under ``torch.inference_mode``; ``loss`` is a forward only."""
+    :class:`~repro_torch.models.transformer.ParamTree`).  ``loss`` is
+    differentiable (the reference's, for ``jax.value_and_grad``);
+    ``prefill`` and ``decode`` run under ``torch.inference_mode``."""
 
     def __init__(self, cfg: ArchConfig, *, attention=flash_prefill,
                  scan=ssm_lib.kernel_scan):
@@ -32,13 +33,32 @@ class Model:
         self.attention = attention
         self.scan = scan
 
-    def init(self, seed: int = 0, device="cuda") -> tf.ParamTree:
+    def init(self, seed: int = 0, device="cuda",
+             trainable: bool = False) -> tf.ParamTree:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
-        on ``device``."""
+        on ``device``: a serving tree, or with ``trainable`` fp32 masters
+        that require gradients."""
         gen = torch.Generator(device=torch.device(device))
         gen.manual_seed(seed)
         with torch.no_grad():
-            return tf.lm_init(gen, self.cfg)
+            return tf.lm_init(gen, self.cfg, trainable)
+
+    def reference_ndims(self, params: tf.ParamTree) -> list[int]:
+        """Each parameter's dims (in ``params.parameters()`` order) in
+        the reference's pytree, where every layer of a full pattern group
+        is stacked [G, ...] with its group's: AdamW's decay rule reads
+        them."""
+        cfg = self.cfg
+        scanned = {"stack": len(cfg.pattern) * (cfg.n_layers
+                                                 // len(cfg.pattern)),
+                   "encoder.stack": cfg.encoder_layers}
+        out = []
+        for name, p in params.named_parameters():
+            head, _, rest = name.partition(".layers.")
+            stacked = head in scanned and \
+                int(rest.split(".", 1)[0]) < scanned[head]
+            out.append(p.dim() + int(stacked))
+        return out
 
     def param_count(self, params: tf.ParamTree) -> int:
         return sum(p.numel() for p in params.parameters())
@@ -63,8 +83,10 @@ class Model:
         return tf.lm_apply(params, self.cfg, tokens, attention=self.attention,
                            scan=self.scan, **kw)
 
-    @torch.inference_mode()
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """Next-token loss (and its metrics) of ``batch["tokens"]``
+        against ``batch["labels"]``; it records gradients where the
+        parameters require them."""
         logits, _, aux = self._apply(params, batch["tokens"],
                                      memory=self._memory(params, batch))
         l, metrics = tf.lm_loss(logits, batch["labels"])

@@ -181,14 +181,16 @@ def kernel_scan(xi, dt, bmat, cmat, a, h0, *, chunk: int = 256,
                 fused: bool = False, kernel=None):
     """The Mamba-1 scan through the ``selective_scan`` kernel (every T,
     decode's T = 1 included), fp32, contiguous operands.  ``kernel`` has
-    ``ops.selective_scan``'s signature; left as None it is that wrapper
-    for CUDA tensors, and for CPU tensors the whole call is
-    :func:`plain_scan` (``chunk`` and ``fused`` matter only there)."""
+    ``ops.selective_scan``'s signature; left as None it is the
+    differentiable ``ops.SelectiveScan`` (the forward kernel, and the
+    backward kernel when a gradient is taken) for CUDA tensors, and for
+    CPU tensors the whole call is :func:`plain_scan` (``chunk`` and
+    ``fused`` matter only there)."""
     if kernel is None:
         if xi.device.type != "cuda":
             return plain_scan(xi, dt, bmat, cmat, a, h0, chunk=chunk,
                               fused=fused)
-        kernel = ops.selective_scan
+        kernel = ops.SelectiveScan.apply
     return kernel(*(x.float().contiguous()
                     for x in (xi, dt, bmat, cmat, a, h0)))
 

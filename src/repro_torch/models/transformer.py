@@ -10,8 +10,16 @@ An architecture is a repeating ``pattern`` of block kinds (ArchConfig.pattern)
 The reference scans its full pattern groups (params stacked [G, ...]);
 here every layer is its own module in one ``ModuleList``, in order: group
 0's blocks, group 1's, ..., then the remainder layers (a prefix of the
-pattern).  A serving forward needs no scan and no remat, so
-``scan_layers`` and ``remat`` change nothing here.
+pattern).  ``scan_layers`` changes nothing here.  ``remat`` does in a
+forward that records gradients: each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), keeping only its input, and is
+recomputed in the backward pass (``remat_policy="dots"`` is taken as
+``"full"``).
+
+Parameters come in two kinds (:func:`lm_init`): a serving tree keeps each
+weight in the dtype its forward reads (:func:`storage_dtype`, bf16 for
+most matrices), a trainable tree keeps the reference's fp32 masters, which
+require gradients and are cast on each use as the reference casts them.
 
 Caches: every block kind has its own decode cache (KV ring buffer for
 sliding-window attention, full KV for dense attention, conv+state for
@@ -31,6 +39,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -65,17 +74,19 @@ class ParamTree(nn.Module):
     """A nested mapping of parameters as a module: ``p["attn"]["wq"]``
     reads as the reference's pytree does, and the state dict is named
     after it (``stack.layers.0.attn.wq``).  Lists become ``ModuleList``s.
-    Parameters take no gradients: this slice only serves."""
+    Its parameters require gradients when ``trainable``."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
             elif isinstance(v, (list, tuple)):
-                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+                self.add_module(k, nn.ModuleList(ParamTree(x, trainable)
+                                                 for x in v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -99,11 +110,15 @@ def storage_dtype(name: str, t: torch.Tensor, cfg: ArchConfig) -> torch.dtype:
 
 
 def to_storage(tree, cfg: ArchConfig):
-    """``tree`` with each leaf in its :func:`storage_dtype`."""
-    if isinstance(tree, dict):
-        return {k: (to_storage(v, cfg) if isinstance(v, (dict, list))
-                    else v.to(storage_dtype(k, v, cfg)))
-                for k, v in tree.items()}
+    """``tree`` (nested dicts and lists, or a :class:`ParamTree`) as
+    nested dicts and lists with each leaf in its :func:`storage_dtype`."""
+    if isinstance(tree, (dict, nn.Module)) and not isinstance(
+            tree, nn.ModuleList):
+        items = tree.items() if isinstance(tree, dict) else \
+            [*tree._parameters.items(), *tree._modules.items()]
+        return {k: (v.to(storage_dtype(k, v, cfg))
+                    if isinstance(v, torch.Tensor) else to_storage(v, cfg))
+                for k, v in items}
     return [to_storage(v, cfg) for v in tree]
 
 
@@ -418,7 +433,16 @@ def stack_apply(
 ):
     aux_tot = x.new_zeros((), dtype=torch.float32)
     new_caches = [] if caches is not None else None
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(pattern, n_layers)):
+        if remat:
+            def layer(h, p=params["layers"][i], kind=kind):
+                h, _, a = block_apply(p, h, cfg, kind, memory=memory,
+                                      attention=attention, scan=scan)
+                return h, a
+            x, aux = _checkpoint.checkpoint(layer, x, use_reentrant=False)
+            aux_tot = aux_tot + aux
+            continue
         c = caches[i] if caches is not None else None
         x, nc, aux = block_apply(params["layers"][i], x, cfg, kind, cache=c,
                                  memory=memory, attention=attention,
@@ -432,9 +456,11 @@ def stack_apply(
 # ====================================================================== #
 # full models
 # ====================================================================== #
-def lm_init(gen: torch.Generator, cfg: ArchConfig) -> ParamTree:
-    """The model's parameters, drawn from ``gen`` on its device, each in
-    its :func:`storage_dtype`."""
+def lm_init(gen: torch.Generator, cfg: ArchConfig,
+            trainable: bool = False) -> ParamTree:
+    """The model's parameters, drawn from ``gen`` on its device: each in
+    its :func:`storage_dtype` for serving, or, ``trainable``, in the
+    reference's dtypes (fp32 masters) and requiring gradients."""
     p: dict = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model),
         "stack": stack_init(gen, cfg, cfg.pattern, cfg.n_layers),
@@ -450,7 +476,7 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig) -> ParamTree:
             "ln_final": norm_params(cfg.norm, cfg.d_model, gen.device),
         }
         p["dec_pos"] = normal(gen, (cfg.max_decode_len, cfg.d_model), 0.02)
-    return ParamTree(to_storage(p, cfg))
+    return ParamTree(p if trainable else to_storage(p, cfg), trainable)
 
 
 def encode_memory(params, cfg: ArchConfig, frames: torch.Tensor,
@@ -476,6 +502,10 @@ def lm_apply(
 ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """Returns (logits [B, T, V] fp32, new_caches, aux_loss)."""
     t = tokens.shape[1]
+    if cfg.cast_params_bf16 and params["embed"].dtype == torch.float32:
+        # a trainable tree under the one-time cast: bf16 copies of the big
+        # weights for this forward, as the reference takes them
+        params = to_storage(params, cfg)
     x = params["embed"][tokens]
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
