@@ -2085,11 +2085,14 @@ BWD_KERNELS = {
         "src/repro/kernels/selective_scan.py:62", "selective_scan"),
 }
 BWD_DESIGNS = {
-    "flash_attention_bwd": "CUDA cores: D = rowsum(P dP) in fp32 over q "
-                           "tiles, then dk/dv pass over kv tiles and dq "
-                           "pass over q tiles, each recomputing P from the "
-                           "forward's lse; 64x64 tiles in fp32 shared "
-                           "memory, 4x4 register tiles; no atomics",
+    "flash_attention_bwd": "tensor cores: bf16 wgmma, 64x64 tiles by a "
+                           "2-stage TMA ring, one consumer warpgroup and a "
+                           "producer warp a block; dq pass over q tiles "
+                           "(sweep 1 D = rowsum(P dP) in fp32, sweep 2 dS K) "
+                           "then dk/dv pass over kv tiles (P^T dO, dS^T Q "
+                           "from registers), P from the forward's lse; 11 "
+                           "products a pair: P rounded to bf16 once, dS "
+                           "split into bf16 hi + lo; no atomics",
     "selective_scan_bwd": "CUDA cores: a lane per state, S lanes per (batch, "
                           "channel); forward recompute with a checkpoint "
                           "every 32 steps, reverse recurrence per chunk from "
@@ -2097,6 +2100,11 @@ BWD_DESIGNS = {
                           "shuffle trees, over channels per block then a "
                           "fixed-order reduce; no atomics",
 }
+#: the backward libraries on the tensor cores: the mangled names of their
+#: instantiations and how many there are (each needs HGMMA and UTMALDG in
+#: its SASS and no spills)
+BWD_TC_KERNELS = {"flash_attention_bwd": (("dq_kernelILi", "dkdv_kernelILi"),
+                                          4)}
 #: gradients of the backward kernels against autograd of the plain
 #: versions on the same inputs, row by row: each row's max |kernel - plain|
 #: <= tol x that row's max |plain| + floor x the tensor's max |plain| (the
@@ -2167,6 +2175,31 @@ TRAIN_GRAD_TOL = 0.1
 #: the resumed run's losses against the uninterrupted run's (the embedding
 #: gradient's scatter-add on the card sums in no fixed order)
 RESUME_RTOL = 1e-3
+
+
+def check_bwd_build(build, name: str, lib: Path, report: str) -> None:
+    """Print a backward library's registers and spills per kernel and, for
+    a tensor-core kernel (``BWD_TC_KERNELS``), the ``HGMMA`` / ``UTMALDG``
+    counts of each instantiation's SASS; fail on spills there or on an
+    instantiation without wgmma or TMA loads."""
+    table = ptxas_table(report)
+    print(f"[build]   {name}: " + ", ".join(
+        f"{k} {regs} registers, spills {st}/{ld} bytes"
+        for k, regs, st, ld in table))
+    if name not in BWD_TC_KERNELS:
+        return
+    if any(st or ld for _, _, st, ld in table):
+        fail(f"{name}: a kernel spills registers")
+    names, want = BWD_TC_KERNELS[name]
+    tc = {k: (v["HGMMA"], v["UTMALDG"])
+          for k, v in sass_counts(build, lib).items()
+          if any(n in k for n in names)}
+    print(f"[sass] {lib.name}: {len(tc)} tensor-core instantiations, each "
+          "HGMMA/UTMALDG: " + ", ".join(f"{short_name(k)} {h}/{u}"
+                                        for k, (h, u) in sorted(tc.items())))
+    if len(tc) != want or any(h == 0 or u == 0 for h, u in tc.values()):
+        fail(f"{name}: expected {want} instantiations, each with HGMMA and "
+             f"UTMALDG, in the SASS; found {tc}")
 
 
 def bwd_plain(ref, kernel: str, args: tuple, kwargs: dict):
@@ -3296,11 +3329,12 @@ def main() -> None:
     serve = phase_serve(torch, ops, ref, dev, card)
 
     # ---- 15. train: yi-6b and falcon-mamba-7b at full width, depth 8 -------
-    for m, fut in zip(bwd_libs, bwd_builds):
+    for (name, m), fut in zip(zip(BWD_KERNELS, bwd_libs), bwd_builds):
         lib = fut.result()
+        report = build.ptxas_report(m.SOURCE, m.NVCC_FLAGS)
         print(f"[build] {lib.name} (started in phase 2): "
-              f"{ptxas_summary(build.ptxas_report(m.SOURCE, m.NVCC_FLAGS))}; "
-              f"full report in {lib.name}.ptxas.txt")
+              f"{ptxas_summary(report)}; full report in {lib.name}.ptxas.txt")
+        check_bwd_build(build, name, lib, report)
     train = phase_train(torch, ops, ref, dev, card)
 
     t32 = timing["float32"]

@@ -26,13 +26,14 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNEL = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 FAULTS = {
     "dk/dv pass drops the last q tile": (
-        "for (int q0 = q_start; q0 < T_len; q0 += BQ) {",
-        "for (int q0 = q_start; q0 + BQ < T_len; q0 += BQ) {"),
+        "const int n_q = T_len > q_start ? (T_len - q_start + BQ - 1) / BQ : 0;",
+        "const int n_q = T_len > q_start ? (T_len - q_start - 1) / BQ : 0;"),
     "dq pass zeroes the last q tile": (
-        "dq[(qo + qpos) * D + tx + 16 * j] = "
-        "__float2bfloat16_rn(acc[i][j] * scale);",
-        "dq[(qo + qpos) * D + tx + 16 * j] = "
-        "__float2bfloat16_rn(q0 + BQ >= T_len ? 0.f : acc[i][j] * scale);"),
+        "__floats2bfloat162_rn(acc[4 * c + 2 * i] * scale, "
+        "acc[4 * c + 2 * i + 1] * scale);",
+        "q0 + BQ >= T_len ? __floats2bfloat162_rn(0.f, 0.f) : "
+        "__floats2bfloat162_rn(acc[4 * c + 2 * i] * scale, "
+        "acc[4 * c + 2 * i + 1] * scale);"),
 }
 CHECK = """
 import numpy as np

@@ -4,12 +4,18 @@ kernel.
 The kernel (``csrc/flash_attention_bwd.cu``) is the gradient of the
 ``flash_attention`` kernel's bf16 route: ``dq``, ``dk``, ``dv`` from
 ``q``, ``k``, ``v``, the output's gradient ``do`` and the forward's row
-log-sum-exp, in three passes that recompute the softmax from it (one over
-kv tiles summing ``D = rowsum(P * dP)`` per query in fp32, one over q
-tiles writing ``dk`` and ``dv``, one over kv tiles writing ``dq``), with
-no float atomics.  The reference has no backward kernel (it differentiates jnp
-attention).  Built and loaded by ``build.py`` at first use; nothing here
-runs when the module is imported.
+log-sum-exp.  Every product is a bf16 ``wgmma`` on the tensor cores with
+fp32 sums, its tiles brought by TMA, in two launches that recompute the
+softmax from the log-sum-exp: a dq pass over q tiles that first sums
+``D = rowsum(P * dP)`` per query in fp32 (written to a scratch row for
+the next launch) and then adds ``dS K``, and a dk/dv pass over kv tiles
+that adds ``P^T dO`` and ``dS^T Q``.  P is rounded to bf16 once and dS
+split into bf16 hi + lo parts (dS sums to 0 over a row's keys, and dq
+must keep that cancellation): 11 products a (query, key) pair, and no
+float atomics, so every run gives the same bits.  The reference has
+no backward kernel (it differentiates jnp attention).  Built and loaded
+by ``build.py`` at first use; nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ def _library() -> ctypes.CDLL:
 
 
 def launch(q, k, v, do, lse, *, causal: bool = True):
-    """One backward call (three kernel launches) on the current CUDA
+    """One backward call (two kernel launches) on the current CUDA
     stream: ``q``, ``do`` [BH, T, d] and ``k``, ``v`` [BH, S, d] bfloat16,
     ``lse`` [BH, T] float32 from the forward.  Returns (dq, dk, dv)
     bfloat16."""
@@ -59,8 +65,8 @@ def launch(q, k, v, do, lse, *, causal: bool = True):
                            ("v", v, (bh, s, d)), ("do", do, (bh, t, d))):
         _build.check_tensor(name, x, shape, bf, q.device)
     _build.check_tensor("lse", lse, (bh, t), torch.float32, q.device)
-    # the kernel reads bf16 pairs: 4-byte-aligned bases
-    q, k, v, do = (x if x.data_ptr() % 4 == 0 else x.clone()
+    # TMA reads from 16-byte-aligned bases
+    q, k, v, do = (x if x.data_ptr() % 16 == 0 else x.clone()
                    for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     d_rows = torch.empty((bh, t), dtype=torch.float32, device=q.device)

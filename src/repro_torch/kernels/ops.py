@@ -142,7 +142,7 @@ def flash_attention_bwd(q, k, v, do, lse, *, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention` against its output's
     gradient ``do``, given the forward's log-sum-exp ``lse`` (bf16 on the
     card; the plain version needs no ``lse``).  One call counts one launch
-    (the kernel is three launches on the card)."""
+    (the kernel is two launches on the card)."""
     if _route(q) == "cpu":
         return ref.attention_bwd_ref(q, k, v, do, causal=causal)
     out = _fab.launch(q, k, v, do, lse, causal=causal)

@@ -10,7 +10,8 @@ on the card launching all four kernels.  The bf16 tensor-core routes of
 cim_matmul and flash_attention at every tile set (a ragged matmul that
 needs TMA padding, AF and PF; attention with T != S ragged, both head
 widths, causal or not) at chip_smoke.py's bf16 tolerances, misaligned
-operand bases, and HGMMA / UTMALDG in every bf16 instantiation's SASS.
+operand bases, and HGMMA / UTMALDG in every bf16 instantiation's SASS
+(and in flash_attention_bwd's, which spills no register).
 strategy_eval (two lanes a candidate) at an SA step's [1, 64] and each
 operator bucket, exact in fp32 and fp64 with identical indices, and no
 spills.  selective_scan at every (ct, ci) tile, S in {1, 4, 8, 16},
@@ -267,8 +268,9 @@ def test_flash_attention_bf16_every_tile_set(card, d, shape, causal, tiles):
 
 
 def test_tensor_core_kernels_have_hgmma_in_sass(card):
-    """Every bf16 instantiation of cim_matmul and flash_attention issues
-    wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS."""
+    """Every bf16 instantiation of cim_matmul and flash_attention, and
+    every instantiation of flash_attention_bwd's two passes, issues wgmma
+    (HGMMA) and TMA loads (UTMALDG) in its SASS."""
     import re
     import subprocess
     from pathlib import Path
@@ -276,9 +278,11 @@ def test_tensor_core_kernels_have_hgmma_in_sass(card):
     from repro_torch.kernels import build
     from repro_torch.kernels import cim_matmul as cm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     tool = Path(build.nvcc()).with_name("cuobjdump")
     for mod, names, want in ((cm, ("af_kernelILi", "pf_kernelILi"), 16),
-                             (fa, ("flash_kernelILi",), 8)):
+                             (fa, ("flash_kernelILi",), 8),
+                             (fab, ("dq_kernelILi", "dkdv_kernelILi"), 4)):
         sass = subprocess.run([str(tool), "-sass",
                                str(build.build(mod.SOURCE, mod.NVCC_FLAGS))],
                               capture_output=True, text=True,
@@ -334,6 +338,18 @@ def test_strategy_eval_has_no_spills(card):
     from repro_torch.kernels import strategy_eval as se
     report = se.ptxas_report()
     assert len(re.findall(r"Used \d+ registers", report)) == 2
+    assert all(int(x) == 0 for x in re.findall(r"(\d+) bytes spill", report))
+
+
+def test_flash_attention_bwd_has_no_spills(card):
+    """Both passes of the backward at both head widths: four kernels, no
+    spill stores or loads."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention_bwd as fab
+    report = build.ptxas_report(fab.SOURCE, fab.NVCC_FLAGS)
+    assert len(re.findall(r"Used \d+ registers", report)) == 4
     assert all(int(x) == 0 for x in re.findall(r"(\d+) bytes spill", report))
 
 

@@ -2,9 +2,10 @@
 and ``selective_scan_bwd`` against their plain versions (autograd of
 ``ref.attention_ref`` / ``ref.selective_scan_ref``) at every head width,
 causal or not, with ragged T and S (not multiples of the 64-row tiles),
-T != S and a base that is not 4-byte aligned; the scan at S in {1, 4, 8,
-16} with ragged T (not a multiple of the 32-step chunk) and I; two
-launches bit-identical; the forward kernel's log-sum-exp against the
+T != S, rows that one key dominates, rows with a shared component and a
+base that is not 16-byte aligned; the scan at S in {1, 4, 8, 16} with
+ragged T (not a multiple of the 32-step chunk) and I; two launches
+bit-identical; the forward kernel's log-sum-exp against the
 plain one, and its output unchanged when it writes it; and the autograd
 Functions' gradients equal to the wrappers'.
 
@@ -25,6 +26,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops, ref
+
+from torch_kernel_models import peaked
 
 pytestmark = pytest.mark.cuda
 
@@ -124,6 +127,30 @@ def test_flash_attention_lse_every_route(card, d, causal, dtype, tiles):
         assert lse.dtype == torch.float32 and lse.shape == (2, t)
         want = ref.attention_lse_ref(q, k, causal=causal)
         assert float((lse - want).abs().max()) <= LSE_ATOL, (t, s)
+
+
+@pytest.mark.parametrize("kind", ["peaked", "shared"])
+@pytest.mark.parametrize("d", fa_k.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,t,s", [(2, 200, 333), (3, 200, 200)])
+def test_flash_attention_bwd_hard_rows(card, kind, d, causal, bh, t, s):
+    """Peaked rows (q scaled by 2^(1/4) steps until the largest P reaches
+    0.99: one key dominates, dP - D cancels) and shared ones (q and k each
+    with a component common to all rows, 4x the others' size: dq = dS K
+    cancels it only if dS keeps its zero row sum)."""
+    q, k, v, do = _attn_inputs(card, bh, t, s, d, seed=t + s + d + 1)
+    if kind == "peaked":
+        q = peaked(q, k, causal=causal)
+    else:
+        common = torch.as_tensor(np.random.default_rng(d).standard_normal(
+            (2, d)), dtype=torch.float32, device=card)
+        q = (q.float() + 4 * common[0]).bfloat16()
+        k = (k.float() + 4 * common[1]).bfloat16()
+    _, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.attention_bwd_ref(q, k, v, do, causal=causal)
+    _close(got, want, ATTN_TOL, (kind, bh, t, s, d, causal), by_row=True)
 
 
 def test_flash_attention_bwd_misaligned(card):

@@ -13,6 +13,14 @@ lanes per (batch row, channel), G = S rounded up to a power of two, lane s
 holding state s and its product h[s] * C[t, s] (0 past S), y_t the
 group's butterfly (the partial of the lane G/2 away, then G/4, ..., 1),
 time in order with no carry between chunks but h itself.
+
+``bwd_kernel_model`` repeats ``csrc/flash_attention_bwd.cu``: S = Q K^T
+and dP = dO V^T summed in fp32 from bf16 inputs, P = exp2(S scale log2e
+- lse log2e) (0 where masked or past T / S), D = rowsum(P dP) in fp32
+over the kv tiles in order, dS = P (dP - D), then P rounded to bf16 and
+dS split into bf16 hi + lo parts as the operands of dV = P^T dO, dK =
+scale dS^T Q and dQ = scale dS K, each summed in fp32 over 64-row tiles
+in order and rounded to bf16 once.
 """
 import math
 
@@ -61,6 +69,79 @@ def kernel_model(q, k, v, *, causal, bq, bk, split=True):
         out[:, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
 
+
+
+def _bf16_parts(x, split):
+    """x as the kernel's bf16 wgmma operand(s): one rounding, or hi + lo."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return [hi, (x - hi).to(torch.bfloat16).to(torch.float32)] if split \
+        else [hi]
+
+
+def bwd_kernel_model(q, k, v, do, *, causal, bq=64, bk=64, split=True,
+                     d_from_out=False):
+    """The backward kernel's arithmetic: (dq, dk, dv) bf16 of q, do
+    [BH, T, d] and k, v [BH, S, d] bf16, P from the plain log-sum-exp.
+    ``split=False`` rounds dS to bf16 once instead of splitting it into
+    hi + lo parts; ``d_from_out`` takes D = rowsum(dO o) from the bf16
+    output o instead of rowsum(P dP), as the first version did."""
+    from repro_torch.kernels import ref
+    f = torch.float32
+    bh, t, d = q.shape
+    s_len = k.shape[1]
+    q32, k32, v32, do32 = (x.to(f) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    lse2 = ref.attention_lse_ref(q, k, causal=causal) * LOG2E
+    qpos = torch.arange(t)[:, None]
+    kpos = torch.arange(s_len)[None, :]
+    keep = kpos < s_len
+    if causal:
+        keep = keep & (kpos <= qpos)
+    sc = q32 @ k32.transpose(1, 2)
+    p = torch.where(keep, torch.exp2(sc * (scale * LOG2E) - lse2[..., None]),
+                    torch.zeros((), dtype=f))
+    dp = do32 @ v32.transpose(1, 2)
+    if d_from_out:
+        o = ref.attention_ref(q, k, v, causal=causal)
+        dsum = (do32 * o.to(f)).sum(-1)
+    else:
+        dsum = torch.zeros((bh, t), dtype=f)
+        for k0 in range(0, s_len, bk):            # the dq pass's first sweep
+            dsum = dsum + (p[..., k0:k0 + bk] * dp[..., k0:k0 + bk]).sum(-1)
+    ds = p * (dp - dsum[..., None])
+    p_parts, ds_parts = _bf16_parts(p, False), _bf16_parts(ds, split)
+    dq = torch.zeros((bh, t, d), dtype=f)
+    for k0 in range(0, s_len, bk):                # the dq pass's second sweep
+        for part in ds_parts:
+            dq = dq + part[..., k0:k0 + bk] @ k32[:, k0:k0 + bk]
+    dk = torch.zeros((bh, s_len, d), dtype=f)
+    dv = torch.zeros((bh, s_len, d), dtype=f)
+    for q0 in range(0, t, bq):                    # the dk / dv pass
+        for part in p_parts:
+            dv = dv + part[:, q0:q0 + bq].transpose(1, 2) @ do32[:, q0:q0 + bq]
+        for part in ds_parts:
+            dk = dk + part[:, q0:q0 + bq].transpose(1, 2) @ q32[:, q0:q0 + bq]
+    bf = torch.bfloat16
+    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+def peaked(q, k, *, causal, peak=0.99):
+    """q (bf16) scaled by 2^(1/4) steps until the largest P = softmax(q
+    k^T / sqrt(d)) of the tensor reaches ``peak``: rows that one key
+    dominates, where the backward's dP - D cancels."""
+    from repro_torch.kernels import ref
+    t, s_len = q.shape[1], k.shape[1]
+    for _ in range(64):
+        lse = ref.attention_lse_ref(q, k, causal=causal)
+        sc = q.float() @ k.float().transpose(1, 2) / math.sqrt(q.shape[-1])
+        if causal:
+            keep = torch.arange(s_len, device=q.device)[None, :] <= \
+                torch.arange(t, device=q.device)[:, None]
+            sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+        if float(torch.exp(sc - lse[..., None]).max()) >= peak:
+            return q
+        q = (q.float() * 2 ** 0.25).bfloat16()
+    raise ValueError(f"q did not reach a largest P of {peak}")
 
 
 def group_lanes(s: int) -> int:
