@@ -57,6 +57,15 @@
 //   the softmax update (phase 2) with shuffles.  Tiles of 128 x 128 at
 //   d = 128 need 195 KB of shared memory, above the 48 KB default: the
 //   launch raises the limit with cudaFuncSetAttribute.
+//
+// Head widths: both routes are compiled at D = 64, 128 and 256, and a
+// width d <= 256 with d % 8 == 0 (h2o-danube-3-4b's 120, the gemma archs'
+// 256, the reduced configs' 16) runs on the smallest D that holds it.
+// Loads read rows d wide and fill columns d .. D - 1 with zeros (on the
+// bf16 route TMA's out-of-range fill, rows of 2 d bytes), which add exact
+// zeros to Q K^T and give zero columns of P V that are never stored; the
+// scale stays 1/sqrt(d).  At D = 256 only 64 x 64 tiles fit in shared
+// memory (146 KB fp32, 161 KB bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -82,8 +91,8 @@ template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int T_len, int S_len, float scale,
-             int causal) {
+             float* __restrict__ lse, int T_len, int S_len, int d_len,
+             float scale, int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                               // [BQ][D+1]
   float* KV = Qs + BQ * (D + 1);                  // Kt [D][BK+1] | Vs [BK][D]
@@ -95,14 +104,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const T* qb = q + static_cast<size_t>(bh) * T_len * D;
-  const T* kb = k + static_cast<size_t>(bh) * S_len * D;
-  const T* vb = v + static_cast<size_t>(bh) * S_len * D;
+  // rows are d_len wide; columns d_len.. D - 1 stage as zeros, which add
+  // exact zeros to the scores and leave output columns that are not stored
+  const T* qb = q + static_cast<size_t>(bh) * T_len * d_len;
+  const T* kb = k + static_cast<size_t>(bh) * S_len * d_len;
+  const T* vb = v + static_cast<size_t>(bh) * S_len * d_len;
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
-    Qs[r * (D + 1) + c] =
-        q0 + r < T_len ? to_f(qb[static_cast<size_t>(q0 + r) * D + c]) : 0.f;
+    Qs[r * (D + 1) + c] = q0 + r < T_len && c < d_len
+        ? to_f(qb[static_cast<size_t>(q0 + r) * d_len + c]) : 0.f;
   }
   for (int r = tid; r < BQ; r += THREADS) {
     m_s[r] = NEG_INF;
@@ -123,8 +134,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                              // previous tile's readers are done
     for (int idx = tid; idx < BK * D; idx += THREADS) {
       const int r = idx / D, c = idx % D;
-      KV[c * (BK + 1) + r] =
-          kv0 + r < S_len ? to_f(kb[static_cast<size_t>(kv0 + r) * D + c]) : 0.f;
+      KV[c * (BK + 1) + r] = kv0 + r < S_len && c < d_len
+          ? to_f(kb[static_cast<size_t>(kv0 + r) * d_len + c]) : 0.f;
     }
     __syncthreads();
 
@@ -160,8 +171,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // stage V over K, and the softmax update, one warp per row
     for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D;
-      KV[idx] = kv0 + r < S_len ? to_f(vb[static_cast<size_t>(kv0) * D + idx]) : 0.f;
+      const int r = idx / D, c = idx % D;
+      KV[idx] = kv0 + r < S_len && c < d_len
+          ? to_f(vb[static_cast<size_t>(kv0 + r) * d_len + c]) : 0.f;
     }
     for (int r = warp; r < BQ; r += THREADS / 32) {
       float* row = Ss + r * (BK + 1);
@@ -214,7 +226,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = o + static_cast<size_t>(bh) * T_len * D;
+  T* ob = o + static_cast<size_t>(bh) * T_len * d_len;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = ty + 16 * i;
@@ -222,7 +234,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < CD; ++j)
-      ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+      if (tx + 16 * j < d_len)
+        ob[static_cast<size_t>(q0 + r) * d_len + tx + 16 * j] =
+            from_f<T>(acc[i][j] / denom);
     if (lse != nullptr && tx == 0)
       lse[static_cast<size_t>(bh) * T_len + q0 + r] = m_s[r] + logf(denom);
   }
@@ -230,28 +244,31 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int T_len, int S_len, float scale, int causal,
+           int BH, int T_len, int S_len, int d_len, float scale, int causal,
            cudaStream_t stream) {
   const size_t smem = smem_floats<D, BQ, BK>() * sizeof(float);
   auto kern = flash_kernel<T, D, BQ, BK>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T_len + BQ - 1) / BQ, BH);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S_len, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, T_len, S_len, d_len,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// D is the compiled width that holds d (compiled_width); at D = 256 only
+// 64 x 64 tiles fit in shared memory (146 KB)
 template <typename T>
-int dispatch(int d, int bq, int bk, const void* q, const void* k,
+int dispatch(int D, int d, int bq, int bk, const void* q, const void* k,
              const void* v, void* o, float* lse, int BH, int T_len, int S_len,
              float scale, int causal, cudaStream_t stream) {
 #define FA_TILE(D_, BQ_, BK_)                                                 \
-  if (d == D_ && bq == BQ_ && bk == BK_)                                      \
-    return launch<T, D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, scale,  \
-                                   causal, stream);
+  if (D == D_ && bq == BQ_ && bk == BK_)                                      \
+    return launch<T, D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, d,      \
+                                   scale, causal, stream);
   FA_TILE(64, 128, 128)
   FA_TILE(64, 128, 64)
   FA_TILE(64, 64, 128)
@@ -260,6 +277,7 @@ int dispatch(int d, int bq, int bk, const void* q, const void* k,
   FA_TILE(128, 128, 64)
   FA_TILE(128, 64, 128)
   FA_TILE(128, 64, 64)
+  FA_TILE(256, 64, 64)
 #undef FA_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -331,19 +349,24 @@ __device__ __forceinline__ void issue_qk(float (&sc)[KS / 2],
 
 // o += (P hi + P lo) V for KS keys whose rows start at vs in a staged V
 // tile of BK rows (MN-major: transpose bit, 64-wide d chunks BK rows
-// apart); issued and committed, not waited for
+// apart); a 256-wide o is two 128-wide products.  Issued and committed,
+// not waited for
 template <int D, int BK, int KS>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&p_hi)[KS / 16][4],
                                          const uint32_t (&p_lo)[KS / 16][4],
                                          const uint8_t* vs) {
+  constexpr int NB = D > 128 ? 128 : D;      // one product's N
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < KS / 16; ++kk) {
-    const uint64_t dv = hopper::desc_sw128(vs + kk * 2048, BK * 128, 1024);
-    hopper::wgmma_rs<1>(o, p_hi[kk], dv);
-    hopper::wgmma_rs<1>(o, p_lo[kk], dv);
-  }
+  for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < D / NB; ++h) {
+      const uint64_t dv = hopper::desc_sw128(
+          vs + h * (NB / 64) * BK * 128 + kk * 2048, BK * 128, 1024);
+      hopper::wgmma_rs<1>(hopper::slice<NB / 2>(o, h * NB / 2), p_hi[kk], dv);
+      hopper::wgmma_rs<1>(hopper::slice<NB / 2>(o, h * NB / 2), p_lo[kk], dv);
+    }
   hopper::wgmma_commit();
 }
 
@@ -415,7 +438,7 @@ __device__ __forceinline__ void consume(
     const uint8_t* q_s, const uint8_t* k_s, const uint8_t* v_s,
     uint64_t* q_full, uint64_t* k_full, uint64_t* v_full, uint64_t* kv_empty,
     bf16* __restrict__ o, float* __restrict__ lse, int bh, int q0, int n_kv,
-    int T_len, int S_len, float scale, int causal, int wg) {
+    int T_len, int S_len, int d_len, float scale, int causal, int wg) {
   using T = Tile<D, BQ, BK>;
   constexpr int S = T::STAGES, KS = T::KS, R = BK / KS;
   const int lane = threadIdx.x % 32, w = (threadIdx.x % WG) / 32;
@@ -470,8 +493,9 @@ __device__ __forceinline__ void consume(
   hopper::wgmma_wait<0>();
   hopper::fence_regs(o_acc);
 
-  // out = acc / max(l, 1e-30), l summed over the row's quad
-  bf16* ob = o + static_cast<size_t>(bh) * T_len * D;
+  // out = acc / max(l, 1e-30), l summed over the row's quad; rows are
+  // d_len wide (columns d_len.. D - 1 of acc came from zero-filled loads)
+  bf16* ob = o + static_cast<size_t>(bh) * T_len * d_len;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_r[i];
@@ -486,10 +510,11 @@ __device__ __forceinline__ void consume(
       lse[static_cast<size_t>(bh) * T_len + q] = (m_r[i] + log2f(denom)) * LN2;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(
-          ob + static_cast<size_t>(q) * D + 8 * c + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(o_acc[4 * c + 2 * i] / denom,
-                                o_acc[4 * c + 2 * i + 1] / denom);
+      if (8 * c + 2 * (lane % 4) < d_len)   // d_len % 8 == 0: both or neither
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + static_cast<size_t>(q) * d_len + 8 * c + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(o_acc[4 * c + 2 * i] / denom,
+                                  o_acc[4 * c + 2 * i + 1] / denom);
   }
 }
 
@@ -498,8 +523,8 @@ __global__ void __launch_bounds__(Tile<D, BQ, BK>::THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-             float* __restrict__ lse, int T_len, int S_len, float scale,
-             int causal) {
+             float* __restrict__ lse, int T_len, int S_len, int d_len,
+             float scale, int causal) {
   using T = Tile<D, BQ, BK>;
   constexpr int S = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -543,23 +568,29 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     consume<D, BQ, BK>(q_s, k_s, v_s, q_full, k_full, v_full, kv_empty, o,
-                       lse, bh, q0, n_kv, T_len, S_len, scale, causal, wg);
+                       lse, bh, q0, n_kv, T_len, S_len, d_len, scale, causal,
+                       wg);
   }
 }
 
+// The tensor maps are d_len columns wide (rows of 2 d_len bytes, a multiple
+// of 16 as TMA requires when d_len % 8 == 0); the D / 64 boxes of a tile
+// reach past them, and TMA fills columns d_len.. D - 1 with zeros.
 template <int D, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int T_len, int S_len, float scale, int causal,
+           int BH, int T_len, int S_len, int d_len, float scale, int causal,
            cudaStream_t stream) {
   using T = Tile<D, BQ, BK>;
   CUtensorMap q_map, k_map, v_map;
-  const uint64_t strides[2] = {static_cast<uint64_t>(D) * 2,
-                               static_cast<uint64_t>(T_len) * D * 2};
-  const uint64_t kv_strides[2] = {static_cast<uint64_t>(D) * 2,
-                                  static_cast<uint64_t>(S_len) * D * 2};
-  const uint64_t q_dims[3] = {D, static_cast<uint64_t>(T_len),
+  const uint64_t strides[2] = {static_cast<uint64_t>(d_len) * 2,
+                               static_cast<uint64_t>(T_len) * d_len * 2};
+  const uint64_t kv_strides[2] = {static_cast<uint64_t>(d_len) * 2,
+                                  static_cast<uint64_t>(S_len) * d_len * 2};
+  const uint64_t q_dims[3] = {static_cast<uint64_t>(d_len),
+                              static_cast<uint64_t>(T_len),
                               static_cast<uint64_t>(BH)};
-  const uint64_t kv_dims[3] = {D, static_cast<uint64_t>(S_len),
+  const uint64_t kv_dims[3] = {static_cast<uint64_t>(d_len),
+                               static_cast<uint64_t>(S_len),
                                static_cast<uint64_t>(BH)};
   const uint32_t q_box[3] = {64, BQ, 1}, kv_box[3] = {64, BK, 1};
   if (!hopper::bf16_map(&q_map, q, 3, q_dims, strides, q_box) ||
@@ -567,22 +598,28 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       !hopper::bf16_map(&v_map, v, 3, kv_dims, kv_strides, kv_box))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_kernel<D, BQ, BK>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(T::SMEM));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (T_len + BQ - 1) / BQ);
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(q_map, k_map, v_map,
                                               static_cast<bf16*>(o), lse,
-                                              T_len, S_len, scale * LOG2E,
-                                              causal);
+                                              T_len, S_len, d_len,
+                                              scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int d, int bq, int bk, const void* q, const void* k,
+// At D = 256 only 64 x 64 tiles fit (Q 32 KB and a 2-stage K / V ring of
+// 4 x 32 KB, 161 KB; 128 x 128 would need 320 KB), with one consumer
+// warpgroup: O is 128 fp32 registers a thread beside 32 of scores and 32
+// of P hi + lo.
+int dispatch(int D, int d, int bq, int bk, const void* q, const void* k,
              const void* v, void* o, float* lse, int BH, int T_len, int S_len,
              float scale, int causal, cudaStream_t stream) {
 #define FA_TC_TILE(D_, BQ_, BK_)                                              \
-  if (d == D_ && bq == BQ_ && bk == BK_)                                      \
-    return launch<D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, scale,     \
+  if (D == D_ && bq == BQ_ && bk == BK_)                                      \
+    return launch<D_, BQ_, BK_>(q, k, v, o, lse, BH, T_len, S_len, d, scale,  \
                                 causal, stream);
   FA_TC_TILE(64, 128, 128)
   FA_TC_TILE(64, 128, 64)
@@ -592,6 +629,7 @@ int dispatch(int d, int bq, int bk, const void* q, const void* k,
   FA_TC_TILE(128, 128, 64)
   FA_TC_TILE(128, 64, 128)
   FA_TC_TILE(128, 64, 64)
+  FA_TC_TILE(256, 64, 64)
 #undef FA_TC_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -604,27 +642,32 @@ extern "C" {
 
 // q [BH, T, d], k, v [BH, S, d] -> o [BH, T, d], all of one dtype (0:
 // float32, 1: bfloat16, with 16-byte-aligned bases for TMA), contiguous;
-// d in {64, 128}, bq and bk in {64, 128}.  With a non-null `lse` it also
-// writes each row's log-sum-exp of the scaled, masked scores, fp32 [BH, T]
-// (o is the same with or without it).  Launches on `stream`, allocates
-// nothing, returns cudaGetLastError().
+// 0 < d <= 256 with d % 8 == 0, run on the smallest compiled width (64,
+// 128, 256) that holds it; bq and bk in {64, 128}, 64 at width 256.
+// With a non-null `lse` it also writes each row's log-sum-exp of the
+// scaled, masked scores, fp32 [BH, T] (o is the same with or without
+// it).  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 int flash_attention(int dtype, int d, int bq, int bk, const void* q,
                     const void* k, const void* v, void* o, int BH, int T_len,
                     int S_len, float scale, int causal, void* lse,
                     void* stream) {
+  if (d <= 0 || d > 256 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int D = d <= 64 ? 64 : d <= 128 ? 128 : 256;
   if (BH == 0 || T_len == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto lse_f = static_cast<float*>(lse);
   if (S_len == 0 && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len,
+    return dispatch<float>(D, d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len,
                            scale, causal, s);
   if (dtype == 1 && S_len == 0)   // no keys: acc / max(l, 1e-30) = 0
     return static_cast<int>(cudaMemsetAsync(
         o, 0, static_cast<size_t>(BH) * T_len * d * sizeof(__nv_bfloat16), s));
   if (dtype == 1)
-    return tc::dispatch(d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len, scale,
-                        causal, s);
+    return tc::dispatch(D, d, bq, bk, q, k, v, o, lse_f, BH, T_len, S_len,
+                        scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

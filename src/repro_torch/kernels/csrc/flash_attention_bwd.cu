@@ -7,8 +7,9 @@
 // training forward runs through the flash_attention kernel, so this is its
 // backward: q, k, v, do [BH, T|S, d] bfloat16, the forward's row
 // log-sum-exp lse [BH, T] fp32 (natural log of the scaled, masked scores),
-// scale 1/sqrt(d), causal top-left (also when T != S) or none, d in
-// {64, 128}; dq, dk, dv bfloat16 with fp32 accumulation.  With
+// scale 1/sqrt(d), causal top-left (also when T != S) or none, 0 < d <=
+// 256 with d % 8 == 0 (below); dq, dk, dv bfloat16 with fp32
+// accumulation.  With
 // P = exp(scale q k^T - lse) (masked entries 0):
 //
 //   dv = P^T do,  dP = do v^T,  dS = P * (dP - D),  D = rowsum(P * dP),
@@ -77,6 +78,19 @@
 // S^T and dP^T (32 + 32), so that pass runs one block of 160 threads a SM
 // (up to 255 registers a thread); the dq pass (dQ 64, S 32, dP 32) and
 // every d = 64 pass run two blocks a SM (up to 204).
+//
+// Head widths: the passes are compiled at D = 64, 128 and 256 (the
+// forward's), and a width d <= 256 with d % 8 == 0 runs on the smallest D
+// that holds it: the tensor maps are d columns wide (rows of 2 d bytes),
+// TMA fills columns d .. D - 1 of every tile with zeros, which add exact
+// zeros to S and dP, and the stores are masked to d columns.  At D = 256 a
+// consumer cannot hold dK and dV (2 x 128 fp32) or dQ beside S and dP, so
+// each pass splits d into two 128-column halves over the grid: a block
+// forms S and dP (S^T and dP^T) over the full width from its 256-wide
+// tiles, as at 128, and adds only its half of dQ (dK and dV); the two
+// halves recompute the same S and dP, bit for bit, and the first half
+// writes D.  Both passes then take 197 KB of shared memory: one block a
+// SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -145,11 +159,12 @@ __device__ __forceinline__ void issue_abt(float (&acc)[32], const uint8_t* a,
   }
 }
 
-// acc[64 x D] += A B over 64 rows of B: A from registers (four k16
+// acc[64 x N] += A B over 64 rows of B: A from registers (four k16
 // fragments), B's 64 rows at b read MN-major (the transpose bit; its
-// 64-wide d chunks one box apart); issued, not committed
-template <int D>
-__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+// 64-wide d chunks one box apart, N / 64 of them from b on); issued, not
+// committed
+template <int N>
+__device__ __forceinline__ void issue_ab(float (&acc)[N / 2], const uint32_t (&a)[4][4],
                                          const uint8_t* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -157,8 +172,8 @@ __device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&a
 }
 
 // the same with A = hi + lo: two products a k16 step
-template <int D>
-__device__ __forceinline__ void issue_ab(float (&acc)[D / 2], const uint32_t (&hi)[4][4],
+template <int N>
+__device__ __forceinline__ void issue_ab(float (&acc)[N / 2], const uint32_t (&hi)[4][4],
                                          const uint32_t (&lo)[4][4], const uint8_t* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -227,6 +242,10 @@ __device__ __forceinline__ void p_by_row(float (&s)[32], const float (&lse2)[2],
       }
 }
 
+// the output columns a block adds: all of d, or a 128-column half at 256
+template <int D>
+__host__ __device__ constexpr int out_cols() { return D > 128 ? 128 : D; }
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
 dq_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -234,8 +253,9 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap v_map,
           const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
           float* __restrict__ Dv, bf16* __restrict__ dq, int T_len, int S_len,
-          float scale, int causal) {
-  constexpr int TB = tile_bytes<D>();
+          int d_len, float scale, int causal) {
+  constexpr int TB = tile_bytes<D>(), DO = out_cols<D>();
+  const int c0 = blockIdx.z * DO;                    // this block's columns of dq
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = hopper::align1024(smem_raw);
   uint8_t* do_s = q_s + TB;
@@ -284,7 +304,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 2; ++i)
     lse2[i] = q_row + 8 * i < T_len ? lse[qo + q_row + 8 * i] * LOG2E : 0.f;
   const bool rows_ragged = q0 + BQ > T_len;
-  float s[32], dp[32], acc[D / 2];
+  float s[32], dp[32], acc[DO / 2];
   uint32_t ds_hi[4][4], ds_lo[4][4];
   hopper::zero(acc);
   hopper::mbar_wait(q_full, 0);
@@ -305,7 +325,8 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int i = 0; i < 2; ++i) {
           dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 1);
           dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 2);
-          if (lane % 4 == 0 && q_row + 8 * i < T_len) Dv[qo + q_row + 8 * i] = dsum[i];
+          if (blockIdx.z == 0 && lane % 4 == 0 && q_row + 8 * i < T_len)
+            Dv[qo + q_row + 8 * i] = dsum[i];
         }
       }
       continue;
@@ -316,22 +337,25 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     to_split_frags(dp, ds_hi, ds_lo);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    issue_ab<D>(acc, ds_hi, ds_lo, ks);
+    issue_ab<DO>(acc, ds_hi, ds_lo, ks + c0 / 64 * BOX);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
     if (lane == 0) hopper::mbar_arrive(&empty[st]);
   }
 
-  // dq = scale acc, rows past T not written
+  // dq = scale acc, rows past T and columns past d not written
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int q = q_row + 8 * i;
     if (q >= T_len) continue;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (qo + q) * D + 8 * c + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+    for (int c = 0; c < DO / 8; ++c) {
+      const int col = c0 + 8 * c + 2 * (lane % 4);   // d_len % 8 == 0: col + 1 too
+      if (col < d_len)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (qo + q) * d_len + col) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+    }
   }
 }
 
@@ -366,14 +390,15 @@ __device__ __forceinline__ void p_ds_by_col(float (&s)[32], float (&dp)[32],
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, D >= 128 ? 1 : 2)
 dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
             const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
             const float* __restrict__ Dv, bf16* __restrict__ dk, bf16* __restrict__ dv,
-            int T_len, int S_len, float scale, int causal) {
-  constexpr int TB = tile_bytes<D>();
+            int T_len, int S_len, int d_len, float scale, int causal) {
+  constexpr int TB = tile_bytes<D>(), DO = out_cols<D>();
+  const int c0 = blockIdx.z * DO;                    // this block's columns of dk, dv
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = hopper::align1024(smem_raw);
   uint8_t* v_s = k_s + TB;
@@ -428,7 +453,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int k_row = k0 + 16 * w + lane / 4;          // and k_row + 8
   const float scale2 = scale * LOG2E;
-  float s[32], dp[32], acc_k[D / 2], acc_v[D / 2];
+  float s[32], dp[32], acc_k[DO / 2], acc_v[DO / 2];
   uint32_t p_f[4][4], ds_hi[4][4], ds_lo[4][4];
   hopper::zero(acc_k);
   hopper::zero(acc_v);
@@ -449,8 +474,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(acc_v);
     hopper::fence_regs(acc_k);
     hopper::wgmma_fence();
-    issue_ab<D>(acc_v, p_f, dos);                    // dV += P^T dO
-    issue_ab<D>(acc_k, ds_hi, ds_lo, qs);            // dK += (dS hi + dS lo)^T Q
+    issue_ab<DO>(acc_v, p_f, dos + c0 / 64 * BOX);   // dV += P^T dO
+    issue_ab<DO>(acc_k, ds_hi, ds_lo, qs + c0 / 64 * BOX);  // dK += (dS hi + lo)^T Q
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc_v);
@@ -459,15 +484,17 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // dk = scale acc_k, dv = acc_v (zeros for keys no query sees); rows past
-  // S not written
+  // S and columns past d not written
   const size_t ko = static_cast<size_t>(bh) * S_len;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kpos = k_row + 8 * i;
     if (kpos >= S_len) continue;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      const size_t at = (ko + kpos) * D + 8 * c + 2 * (lane % 4);
+    for (int c = 0; c < DO / 8; ++c) {
+      const int col = c0 + 8 * c + 2 * (lane % 4);   // d_len % 8 == 0: col + 1 too
+      if (col >= d_len) continue;
+      const size_t at = (ko + kpos) * d_len + col;
       *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
           acc_k[4 * c + 2 * i] * scale, acc_k[4 * c + 2 * i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at) =
@@ -479,14 +506,14 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            float* Dv, bf16* dq, bf16* dk, bf16* dv, int BH, int T_len, int S_len,
-           float scale, int causal, cudaStream_t stream) {
+           int d_len, float scale, int causal, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
-  const uint64_t q_dims[3] = {D, static_cast<uint64_t>(T_len), static_cast<uint64_t>(BH)};
-  const uint64_t kv_dims[3] = {D, static_cast<uint64_t>(S_len), static_cast<uint64_t>(BH)};
-  const uint64_t q_strides[2] = {static_cast<uint64_t>(D) * 2,
-                                 static_cast<uint64_t>(T_len) * D * 2};
-  const uint64_t kv_strides[2] = {static_cast<uint64_t>(D) * 2,
-                                  static_cast<uint64_t>(S_len) * D * 2};
+  const uint64_t d_cols = static_cast<uint64_t>(d_len);
+  const uint64_t q_dims[3] = {d_cols, static_cast<uint64_t>(T_len), static_cast<uint64_t>(BH)};
+  const uint64_t kv_dims[3] = {d_cols, static_cast<uint64_t>(S_len), static_cast<uint64_t>(BH)};
+  const uint64_t q_strides[2] = {d_cols * 2, static_cast<uint64_t>(T_len) * d_cols * 2};
+  const uint64_t kv_strides[2] = {d_cols * 2, static_cast<uint64_t>(S_len) * d_cols * 2};
+  const unsigned halves = D / out_cols<D>();
   const uint32_t box[3] = {64, 64, 1};
   if (!hopper::bf16_map(&q_map, q, 3, q_dims, q_strides, box) ||
       !hopper::bf16_map(&do_map, dO, 3, q_dims, q_strides, box) ||
@@ -498,8 +525,8 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<D><<<dim3(BH, (T_len + BQ - 1) / BQ), THREADS, dq_smem, stream>>>(
-      q_map, k_map, v_map, do_map, lse, Dv, dq, T_len, S_len, scale, causal);
+  dq_kernel<D><<<dim3(BH, (T_len + BQ - 1) / BQ, halves), THREADS, dq_smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, Dv, dq, T_len, S_len, d_len, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -507,8 +534,8 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   err = cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<D><<<dim3(BH, (S_len + BK - 1) / BK), THREADS, kv_smem, stream>>>(
-      q_map, k_map, v_map, do_map, lse, Dv, dk, dv, T_len, S_len, scale, causal);
+  dkdv_kernel<D><<<dim3(BH, (S_len + BK - 1) / BK, halves), THREADS, kv_smem, stream>>>(
+      q_map, k_map, v_map, do_map, lse, Dv, dk, dv, T_len, S_len, d_len, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,7 +544,8 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
 extern "C" {
 
 // q, do [BH, T, d], k, v [BH, S, d] bfloat16 (16-byte-aligned bases, for
-// TMA) and lse [BH, T] fp32, all contiguous; d in {64, 128}; D_scratch
+// TMA) and lse [BH, T] fp32, all contiguous; 0 < d <= 256 with d % 8 ==
+// 0, run on the smallest compiled width (64, 128, 256) that holds it; D_scratch
 // fp32 [BH, T] -> dq [BH, T, d], dk, dv [BH, S, d] bfloat16.  T, S >= 1.
 // Two launches on `stream`; allocates nothing, returns a CUDA error code.
 int flash_attention_bwd(int d, const void* q, const void* k, const void* v, const void* dO,
@@ -529,13 +557,15 @@ int flash_attention_bwd(int d, const void* q, const void* k, const void* v, cons
   auto w = [](void* p) { return static_cast<bf16*>(p); };
   auto lse_f = static_cast<const float*>(lse);
   auto d_f = static_cast<float*>(D_scratch);
-  if (d == 64)
-    return launch<64>(q, k, v, dO, lse_f, d_f, w(dq), w(dk), w(dv), BH, T_len, S_len, scale,
-                      causal, s);
-  if (d == 128)
-    return launch<128>(q, k, v, dO, lse_f, d_f, w(dq), w(dk), w(dv), BH, T_len, S_len, scale,
-                       causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || d > 256 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 64)
+    return launch<64>(q, k, v, dO, lse_f, d_f, w(dq), w(dk), w(dv), BH, T_len, S_len, d,
+                      scale, causal, s);
+  if (d <= 128)
+    return launch<128>(q, k, v, dO, lse_f, d_f, w(dq), w(dk), w(dv), BH, T_len, S_len, d,
+                       scale, causal, s);
+  return launch<256>(q, k, v, dO, lse_f, d_f, w(dq), w(dk), w(dv), BH, T_len, S_len, d,
+                     scale, causal, s);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -8,7 +8,8 @@
 // - 2-D and 3-D TMA loads into 128-byte-swizzled shared memory;
 // - wgmma shared-memory descriptors for 128-byte-swizzled bf16 tiles, the
 //   m64n64k16 / m64n128k16 bf16 -> fp32 products with A in shared memory
-//   (wgmma_ss) or in registers (wgmma_rs), and fence / commit / wait.
+//   (wgmma_ss) or in registers (wgmma_rs), fence / commit / wait, and
+//   slices of an accumulator wider than one product's N.
 //
 // Layouts.  Every shared-memory tile here is a stack of TMA boxes whose inner
 // extent is 64 bf16 values (128 bytes, the swizzle's span): row r of a box
@@ -184,6 +185,14 @@ template <int R>
 __device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// Registers off .. off + R - 1 of an accumulator fragment as an array of
+// their own: an accumulator wider than one wgmma's N (a 256-wide head) is
+// issued in N-wide slices.  `off` must be a constant after unrolling.
+template <int R, int N>
+__device__ __forceinline__ float (&slice(float (&d)[N], int off))[R] {
+  return *reinterpret_cast<float(*)[R]>(d + off);
 }
 
 // D[64 x N] (fp32, registers) += A[64 x 16] B[16 x N], bf16 operands.  The

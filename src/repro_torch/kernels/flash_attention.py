@@ -22,9 +22,33 @@ NVCC_FLAGS = _build.BASE_FLAGS
 
 #: query and key tile sizes the kernel is compiled for (each of bq, bk)
 TILES = (64, 128)
-#: head widths the kernel is compiled for
-HEAD_DIMS = (64, 128)
+#: head widths the kernel is compiled for; a width d <= 256 with d % 8 == 0
+#: runs on the smallest of them that holds it (:func:`compiled_width`)
+HEAD_DIMS = (64, 128, 256)
+#: the (bq, bk) tile sets that fit each compiled width's shared memory
+WIDTH_TILES = {64: tuple((bq, bk) for bq in TILES for bk in TILES),
+               128: tuple((bq, bk) for bq in TILES for bk in TILES),
+               256: ((64, 64),)}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def compiled_width(d: int) -> int:
+    """The compiled head width that runs width ``d``: the smallest of
+    ``HEAD_DIMS`` that holds it.  The kernel reads rows ``d`` wide and
+    fills the rest of the compiled width with zeros, so ``d`` must be a
+    multiple of 8 (TMA's rows of 2 d bytes are multiples of 16).  Raises
+    on any other width."""
+    if d % 8 or not 0 < d <= HEAD_DIMS[-1]:
+        raise ValueError(f"head width {d} is not supported: the kernel takes "
+                         f"widths up to {HEAD_DIMS[-1]} that are multiples of "
+                         f"8 (compiled at {HEAD_DIMS})")
+    return next(w for w in HEAD_DIMS if d <= w)
+
+
+def default_tiles(d: int) -> tuple[int, int]:
+    """(bq, bk) for head width ``d``: 128 x 128 where it fits, else the
+    one tile set of its compiled width."""
+    return max(WIDTH_TILES[compiled_width(d)])
 
 
 @functools.cache
@@ -37,19 +61,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def check_tiling(bq: int, bk: int) -> None:
-    """Raise on a tile size the kernel is not built for."""
+def check_tiling(bq: int | None, bk: int | None) -> None:
+    """Raise on a tile size the kernel is not built for (None: the
+    width's default)."""
     for name, v in (("bq", bq), ("bk", bk)):
-        if v not in TILES:
+        if v is not None and v not in TILES:
             raise ValueError(f"{name}={v} is not a supported tile size "
                              f"{TILES}")
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, bq: int = 128, bk: int = 128,
+           causal: bool = True, bq: int | None = None, bk: int | None = None,
            return_lse: bool = False):
     """One kernel launch on the current CUDA stream: ``q`` [BH, T, d]
-    against ``k``, ``v`` [BH, S, d], all float32 or all bfloat16.  With
+    against ``k``, ``v`` [BH, S, d], all float32 or all bfloat16, with
+    ``bq`` x ``bk`` tiles (:func:`default_tiles` where None).  With
     ``return_lse`` it returns (out, lse), lse [BH, T] float32 the row
     log-sum-exp of the scaled, masked scores that the backward kernel
     takes (``out`` is the same either way)."""
@@ -59,13 +85,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    check_tiling(bq, bk)
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError("q must be [BH, T, d] and k, v [BH, S, d]")
     bh, t, d = q.shape
     s = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} is not supported {HEAD_DIMS}")
+    width = compiled_width(d)
+    if bq is None or bk is None:
+        bq, bk = default_tiles(d)
+    check_tiling(bq, bk)
+    if (bq, bk) not in WIDTH_TILES[width]:
+        raise ValueError(f"tiles bq={bq} x bk={bk} do not fit head width {d} "
+                         f"(compiled at {width}: {WIDTH_TILES[width]})")
     _build.check_tensor("q", q, (bh, t, d), q.dtype, q.device)
     _build.check_tensor("k", k, (bh, s, d), q.dtype, q.device)
     _build.check_tensor("v", v, (bh, s, d), q.dtype, q.device)

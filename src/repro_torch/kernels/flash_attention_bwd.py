@@ -9,8 +9,10 @@ fp32 sums, its tiles brought by TMA, in two launches that recompute the
 softmax from the log-sum-exp: a dq pass over q tiles that first sums
 ``D = rowsum(P * dP)`` per query in fp32 (written to a scratch row for
 the next launch) and then adds ``dS K``, and a dk/dv pass over kv tiles
-that adds ``P^T dO`` and ``dS^T Q``.  P is rounded to bf16 once and dS
-split into bf16 hi + lo parts (dS sums to 0 over a row's keys, and dq
+that adds ``P^T dO`` and ``dS^T Q``; it takes the forward's head widths
+(``flash_attention.compiled_width``), and at 256 each pass splits the
+output columns into two halves over the grid.  P is rounded to bf16 once
+and dS split into bf16 hi + lo parts (dS sums to 0 over a row's keys, and dq
 must keep that cancellation): 11 products a (query, key) pair, and no
 float atomics, so every run gives the same bits.  The reference has
 no backward kernel (it differentiates jnp attention).  Built and loaded
@@ -26,12 +28,10 @@ import math
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import flash_attention as _fa
 
 SOURCE = _build.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
-
-#: head widths the kernel is compiled for (the forward's)
-HEAD_DIMS = (64, 128)
 
 
 @functools.cache
@@ -56,8 +56,7 @@ def launch(q, k, v, do, lse, *, causal: bool = True):
         raise ValueError("q must be [BH, T, d] and k, v [BH, S, d]")
     bh, t, d = q.shape
     s = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} is not supported {HEAD_DIMS}")
+    _fa.compiled_width(d)              # raises on a width it does not take
     if t == 0 or s == 0:
         raise ValueError("flash_attention_bwd needs T >= 1 and S >= 1")
     bf = torch.bfloat16

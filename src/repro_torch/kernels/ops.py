@@ -111,11 +111,13 @@ def _cim_matmul(a: torch.Tensor, b: torch.Tensor, *, tiling: str = "AF",
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, bq: int = 128, bk: int = 128,
-                     return_lse: bool = False):
+                     causal: bool = True, bq: int | None = None,
+                     bk: int | None = None, return_lse: bool = False):
     """Softmax attention of ``q`` [BH, T, d] over ``k``, ``v`` [BH, S, d]
-    with ``bq`` x ``bk`` tiles; causal is top-left.  With ``return_lse``,
-    (out, the rows' log-sum-exp [BH, T] float32)."""
+    with ``bq`` x ``bk`` tiles (where None, the kernel's default for the
+    head width: 128 x 128 up to width 128, 64 x 64 at 256); causal is
+    top-left.  With ``return_lse``, (out, the rows' log-sum-exp [BH, T]
+    float32)."""
     _fa.check_tiling(bq, bk)
     if _route(q) == "cpu":
         out = ref.attention_ref(q, k, v, causal=causal)
@@ -153,7 +155,7 @@ def flash_attention_bwd(q, k, v, do, lse, *, causal: bool = True):
 def selective_scan_bwd(xi, dt, bmat, cmat, a, h0, dy, dh_last):
     """(dxi, ddt, dB, dC, da, dh0) of :func:`selective_scan` against the
     gradients ``dy`` of y and ``dh_last`` of h_last (float32 on the card).
-    One call counts one launch (the kernel is two launches on the card)."""
+    One call counts one launch (the kernel is four launches on the card)."""
     if _route(xi) == "cpu":
         return ref.selective_scan_bwd_ref(xi, dt, bmat, cmat, a, h0, dy,
                                           dh_last)

@@ -26,9 +26,6 @@ from repro_torch.kernels import ops
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
-#: the archs whose head widths the flash kernel is not built for
-_BLOCKED_BY_HEAD_DIM = {120: "h2o-danube-3-4b",
-                        256: "gemma-7b and recurrentgemma-9b"}
 
 
 # the activations op by op as JAX lowers them, each op rounded to the
@@ -305,7 +302,8 @@ def flash_prefill(q, k, v, *, causal: bool, window: int | None,
     is :func:`local_chunk_attention`.
     kv heads are expanded as ``_expand_kv`` does and the heads folded into
     the batch, bf16 and contiguous; the output is bf16 [B, T, H, dh] as
-    the reference's.  A head width the kernel is not built for raises.
+    the reference's.  A head width the kernel does not take (above 256,
+    or not a multiple of 8: ``flash_attention.compiled_width``) raises.
     """
     b, t, h, dh = q.shape
     if kernel is None:
@@ -314,11 +312,7 @@ def flash_prefill(q, k, v, *, causal: bool, window: int | None,
         kernel = _flash_autograd
     if t == 1 or k.shape[1] != t or (window is not None and t > window):
         return attention_any(q, k, v, causal=causal, window=window)
-    if dh not in _fa.HEAD_DIMS:
-        blocked = _BLOCKED_BY_HEAD_DIM.get(dh)
-        raise ValueError(
-            f"flash_attention is built for head widths {_fa.HEAD_DIMS}, not "
-            f"{dh}" + (f" (this blocks {blocked})" if blocked else ""))
+    _fa.compiled_width(dh)
 
     def heads_first(x):
         x = _expand_kv(x, h).to(COMPUTE_DTYPE)

@@ -8,8 +8,8 @@ dtypes of tests/test_kernels.py, at its tolerances (matmul 1e-4 / 0.2,
 attention 2e-3 / 3e-2, scan 1e-3 / 0.15), and the calibration microbench
 on the card launching all four kernels.  The bf16 tensor-core routes of
 cim_matmul and flash_attention at every tile set (a ragged matmul that
-needs TMA padding, AF and PF; attention with T != S ragged, both head
-widths, causal or not) at chip_smoke.py's bf16 tolerances, misaligned
+needs TMA padding, AF and PF; attention with T != S ragged, at every
+compiled head width and at 120, 200 and 16, causal or not) at chip_smoke.py's bf16 tolerances, misaligned
 operand bases, and HGMMA / UTMALDG in every bf16 instantiation's SASS
 (and in flash_attention_bwd's, which spills no register).
 strategy_eval (two lanes a candidate) at an SA step's [1, 64] and each
@@ -36,6 +36,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import bert_large_workload, cost_model, get_macro
 from repro_torch.core.pruning import DesignSpace, candidates_with_bw, enumerate_space
+from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -135,6 +136,19 @@ def test_flash_attention_kernel_matches_plain(card, causal, shape, tiles):
                for n in (t, s, s))
     got = ops.flash_attention(q, k, v, causal=causal, bq=tiles[0],
                               bk=tiles[1])
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 120, 200, 256])
+def test_flash_attention_fp32_other_widths(card, d, causal):
+    """The fp32 route at widths run on a wider compiled width and at 256
+    (64 x 64 tiles), T != S ragged."""
+    rng = np.random.default_rng(d)
+    q, k, v = (_on(card, rng.standard_normal((2, n, d))) for n in (129, 257,
+                                                                   257))
+    got = ops.flash_attention(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
 
@@ -246,15 +260,17 @@ def test_flash_attention_bf16_misaligned_base(card):
     _within(got, ref.attention_ref(q, k, v, causal=True), 1e-3, 2 ** -7)
 
 
-@pytest.mark.parametrize("tiles", [(64, 64), (64, 128), (128, 64),
-                                   (128, 128)],
-                         ids=lambda t: f"bq{t[0]}xbk{t[1]}")
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(2, 200, 333), (2, 333, 200)],
                          ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d,tiles", [
+    (d, t) for d in (64, 128, 256, 120, 200, 16)
+    for t in fa_k.WIDTH_TILES[fa_k.compiled_width(d)]],
+    ids=lambda x: f"bq{x[0]}xbk{x[1]}" if isinstance(x, tuple) else str(x))
 def test_flash_attention_bf16_every_tile_set(card, d, shape, causal, tiles):
-    """T != S, both ragged; chip_smoke.py's bf16 tolerance."""
+    """T != S, both ragged, at every tile set of every compiled width and
+    at widths run on a wider one (120, 200, 16); chip_smoke.py's bf16
+    tolerance."""
     bh, t, s = shape
     rng = np.random.default_rng(9)
     q, k, v = (_on(card, rng.standard_normal((bh, n, d)), torch.bfloat16)
@@ -281,8 +297,8 @@ def test_tensor_core_kernels_have_hgmma_in_sass(card):
     from repro_torch.kernels import flash_attention_bwd as fab
     tool = Path(build.nvcc()).with_name("cuobjdump")
     for mod, names, want in ((cm, ("af_kernelILi", "pf_kernelILi"), 16),
-                             (fa, ("flash_kernelILi",), 8),
-                             (fab, ("dq_kernelILi", "dkdv_kernelILi"), 4)):
+                             (fa, ("flash_kernelILi",), 9),
+                             (fab, ("dq_kernelILi", "dkdv_kernelILi"), 6)):
         sass = subprocess.run([str(tool), "-sass",
                                str(build.build(mod.SOURCE, mod.NVCC_FLAGS))],
                               capture_output=True, text=True,
@@ -342,14 +358,14 @@ def test_strategy_eval_has_no_spills(card):
 
 
 def test_flash_attention_bwd_has_no_spills(card):
-    """Both passes of the backward at both head widths: four kernels, no
-    spill stores or loads."""
+    """Both passes of the backward at the three compiled widths: six
+    kernels, no spill stores or loads."""
     import re
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention_bwd as fab
     report = build.ptxas_report(fab.SOURCE, fab.NVCC_FLAGS)
-    assert len(re.findall(r"Used \d+ registers", report)) == 4
+    assert len(re.findall(r"Used \d+ registers", report)) == 6
     assert all(int(x) == 0 for x in re.findall(r"(\d+) bytes spill", report))
 
 

@@ -1,10 +1,12 @@
-"""The serving path on the card: the reduced yi-6b (head width 64, the
-flash kernel's) and falcon-mamba-7b through the hand-written kernels
-against the same models with the plain twins on the card, on the same
-weights, at ``chip_smoke.py``'s phase 14 bar; the kernels' launch counts
-(one ``flash_attention`` per attention layer per prefill, none in decode;
-one ``selective_scan`` per Mamba layer per prefill and per decode); and a
-head width the flash kernel is not built for refused on the card.
+"""The serving path on the card: the reduced yi-6b (head width 64), the
+reduced h2o-danube-3-4b and gemma-7b at their real head widths (120 and
+256) and falcon-mamba-7b through the hand-written kernels against the
+same models with the plain twins on the card, on the same weights, at
+``chip_smoke.py``'s phase 14 bar; the kernels' launch counts (one
+``flash_attention`` per attention layer per prefill, none in decode; one
+``selective_scan`` per Mamba layer per prefill and per decode); the
+reduced yi-6b's own width 16 through the kernel, and widths the kernel
+does not take refused on the card.
 
 Needs a CUDA card; run with ``pytest -m cuda tests/test_torch_serve_cuda.py``.
 """
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model, layers, ssm
 from repro_torch.serve import GenerationConfig, ServeEngine
 
@@ -26,7 +28,15 @@ import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-MODELS = {"yi-6b": "flash_attention", "falcon-mamba-7b": "selective_scan"}
+MODELS = {"yi-6b": "flash_attention", "h2o-danube-3-4b": "flash_attention",
+          "gemma-7b": "flash_attention", "falcon-mamba-7b": "selective_scan"}
+#: the reduced configs' head widths on the card: yi-6b's a compiled width,
+#: h2o-danube-3-4b's and gemma-7b's their real ones (h2o-danube-3-4b with
+#: its real window, which the 64-token prompt fits, so that its prefill
+#: reaches the kernel)
+WIDTHS = {"yi-6b": dict(head_dim=64),
+          "h2o-danube-3-4b": dict(head_dim=120, window=4096),
+          "gemma-7b": dict(head_dim=256)}
 
 
 @pytest.fixture
@@ -37,8 +47,8 @@ def card():
 
 
 def _cfg(arch):
-    cfg = get_arch(arch).reduced()
-    return dataclasses.replace(cfg, head_dim=64) if arch == "yi-6b" else cfg
+    return dataclasses.replace(get_arch(arch).reduced(), **WIDTHS.get(arch,
+                                                                      {}))
 
 
 def _launches():
@@ -91,13 +101,38 @@ def test_generate_on_the_card(card, arch):
 
 
 def test_other_head_widths_are_refused_on_the_card(card):
+    """The reduced yi-6b's own head width 16 now prefills through the
+    kernel (run at width 64) within the phase 14 bar of the plain twins;
+    flash_prefill at 120 and 256 equals the kernel's plain version on the
+    folded heads within the card's bf16 tolerance; widths the kernel does
+    not take raise."""
     cfg = get_arch("yi-6b").reduced()            # head width 16
     model = build_model(cfg)
+    plain = build_model(cfg, attention=layers.attention_any,
+                        scan=ssm.plain_scan)
     params = model.init(0, card)
-    tokens = torch.ones((1, 8), dtype=torch.int64, device=card)
-    with pytest.raises(ValueError, match="not 16"):
-        model.prefill(params, {"tokens": tokens})
-    for dh, names in ((120, "h2o-danube-3-4b"), (256, "gemma-7b")):
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab, (2, 40)), device=card)
+    chip_smoke.reset_launches(ops)
+    got, _ = model.prefill(params, {"tokens": tokens})
+    assert _launches()["flash_attention"] == cfg.n_layers
+    want, _ = plain.prefill(params, {"tokens": tokens})
+    gap = chip_smoke.logit_gap(got, want)
+    assert gap["rel"] <= chip_smoke.SERVE_REL_TOL, gap
+    assert gap["top1"] >= chip_smoke.SERVE_TOP1, gap
+    rng = np.random.default_rng(5)
+    for dh in (120, 256):
+        q, k, v = (torch.as_tensor(rng.standard_normal((1, 70, 2, dh)),
+                                   dtype=torch.float32).to(card).bfloat16()
+                   for _ in range(3))
+        out = layers.flash_prefill(q, k, v, causal=True, window=None)
+        fold = lambda x: x.permute(0, 2, 1, 3).reshape(2, 70, dh)
+        want = ref.attention_ref(fold(q), fold(k), fold(v), causal=True) \
+            .reshape(1, 2, 70, dh).permute(0, 2, 1, 3)
+        chip_smoke.check_close(f"flash_prefill d={dh}", out, want,
+                               *chip_smoke.TOLERANCES[("flash_attention",
+                                                       "bfloat16")])
+    for dh in (12, 320):
         q = torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16, device=card)
-        with pytest.raises(ValueError, match=names):
+        with pytest.raises(ValueError, match=f"head width {dh} is not"):
             layers.flash_prefill(q, q, q, causal=True, window=None)

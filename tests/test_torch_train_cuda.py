@@ -1,6 +1,7 @@
 """The training path's backward kernels on the card: ``flash_attention_bwd``
 and ``selective_scan_bwd`` against their plain versions (autograd of
-``ref.attention_ref`` / ``ref.selective_scan_ref``) at every head width,
+``ref.attention_ref`` / ``ref.selective_scan_ref``) at every compiled head
+width (64, 128, 256) and at 120 and 16, which run on a wider one,
 causal or not, with ragged T and S (not multiples of the 64-row tiles),
 T != S, rows that one key dominates, rows with a shared component and a
 base that is not 16-byte aligned; the scan at S in {1, 4, 8, 16} with
@@ -86,9 +87,12 @@ def _attn_inputs(card, bh, t, s, d, seed, misaligned=False):
 
 ATTN_SHAPES = [(2, 128, 128), (3, 200, 200), (2, 333, 200), (2, 200, 333),
                (1, 1, 64), (2, 65, 130)]
+#: every compiled width, and widths run on a wider one: h2o-danube-3-4b's
+#: 120 (on 128) and the reduced configs' 16 (on 64)
+WIDTHS = (*fa_k.HEAD_DIMS, 120, 16)
 
 
-@pytest.mark.parametrize("d", fa_k.HEAD_DIMS)
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,t,s", ATTN_SHAPES)
 def test_flash_attention_bwd_against_plain(card, d, causal, bh, t, s):
@@ -105,17 +109,18 @@ def test_flash_attention_bwd_against_plain(card, d, causal, bh, t, s):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("tiles", [(64, 64), (64, 128), (128, 64),
-                                   (128, 128)],
-                         ids=lambda t: f"bq{t[0]}xbk{t[1]}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", fa_k.HEAD_DIMS)
+@pytest.mark.parametrize("d,tiles", [
+    (d, t) for d in WIDTHS
+    for t in fa_k.WIDTH_TILES[fa_k.compiled_width(d)]],
+    ids=lambda x: f"bq{x[0]}xbk{x[1]}" if isinstance(x, tuple) else str(x))
 def test_flash_attention_lse_every_route(card, d, causal, dtype, tiles):
     """Both routes of the forward kernel (fp32 on the CUDA cores, bf16 on
-    the tensor cores) at every tile set: the log-sum-exp against the
-    plain one, and the output the same bits with and without it."""
+    the tensor cores) at every tile set of every width: the log-sum-exp
+    against the plain one, and the output the same bits with and without
+    it."""
     rng = np.random.default_rng(d + 2 * tiles[0] + tiles[1] + int(causal))
     for t, s in ((200, 333), (333, 200)):
         q, k, v = (torch.as_tensor(rng.standard_normal((2, n, d)),
@@ -130,7 +135,7 @@ def test_flash_attention_lse_every_route(card, d, causal, dtype, tiles):
 
 
 @pytest.mark.parametrize("kind", ["peaked", "shared"])
-@pytest.mark.parametrize("d", fa_k.HEAD_DIMS)
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,t,s", [(2, 200, 333), (3, 200, 200)])
 def test_flash_attention_bwd_hard_rows(card, kind, d, causal, bh, t, s):

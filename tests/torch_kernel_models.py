@@ -21,6 +21,22 @@ over the kv tiles in order, dS = P (dP - D), then P rounded to bf16 and
 dS split into bf16 hi + lo parts as the operands of dV = P^T dO, dK =
 scale dS^T Q and dQ = scale dS K, each summed in fp32 over 64-row tiles
 in order and rounded to bf16 once.
+
+Both attention models take ``width``: the kernels' compiled head width
+(64, 128 or 256) that runs a narrower ``d``.  The inputs are then padded
+with zero columns to it, as TMA's out-of-range fill pads the kernels'
+tiles, the arithmetic runs at that width with the scale of ``d``, and the
+outputs keep their first ``d`` columns.
+
+``chunk_scan_bwd`` repeats ``csrc/selective_scan_bwd.cu``'s chunk-parallel
+order: per chunk of ``chunk`` steps the local forward state (from a zero
+entry state), the local reverse state (from a zero incoming g) and the sum
+of dt; a walk over the chunks for each chunk's entry state and incoming g
+(the chunk's map is 2^(a log2(e) sum dt) x + local); then per chunk h_t
+recomputed from its entry state and the reverse recurrence from its
+incoming g, each lane's part of da summed over the chunk, the parts added
+over b, then the chunks.  Every da is 2^(dt a log2(e)), as the kernel
+takes it (ex2); the sums over s and over channels are torch's.
 """
 import math
 
@@ -30,13 +46,27 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
-def kernel_model(q, k, v, *, causal, bq, bk, split=True):
-    """The bf16 kernel's arithmetic; q [BH, T, d], k, v [BH, S, d] bf16."""
+def _pad_cols(width, *xs):
+    """``xs`` with zero columns appended up to ``width`` (None: as they
+    are)."""
+    if width is None:
+        return xs
+    if width < xs[0].shape[-1]:
+        raise ValueError(f"width {width} is narrower than {xs[0].shape[-1]}")
+    return tuple(torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+                 for x in xs)
+
+
+def kernel_model(q, k, v, *, causal, bq, bk, split=True, width=None):
+    """The bf16 kernel's arithmetic; q [BH, T, d], k, v [BH, S, d] bf16;
+    with ``width``, run at that compiled width on zero-padded columns."""
     f = torch.float32
+    d_out = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(d_out) * LOG2E, dtype=f)
+    q, k, v = _pad_cols(width, q, k, v)
     bh, t, d = q.shape
     s_len = k.shape[1]
     q32, k32, v32 = q.to(f), k.to(f), v.to(f)
-    scale = torch.tensor(1.0 / math.sqrt(d) * LOG2E, dtype=f)
     out = torch.empty((bh, t, d), dtype=f)
     for q0 in range(0, t, bq):
         qs = q32[:, q0:q0 + bq]
@@ -67,7 +97,7 @@ def kernel_model(q, k, v, *, causal, bq, bk, split=True):
             acc = acc * alpha[..., None] + pv
             m = m_new
         out[:, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
+    return out[..., :d_out].to(q.dtype)
 
 
 
@@ -79,19 +109,24 @@ def _bf16_parts(x, split):
 
 
 def bwd_kernel_model(q, k, v, do, *, causal, bq=64, bk=64, split=True,
-                     d_from_out=False):
+                     d_from_out=False, width=None):
     """The backward kernel's arithmetic: (dq, dk, dv) bf16 of q, do
     [BH, T, d] and k, v [BH, S, d] bf16, P from the plain log-sum-exp.
     ``split=False`` rounds dS to bf16 once instead of splitting it into
     hi + lo parts; ``d_from_out`` takes D = rowsum(dO o) from the bf16
-    output o instead of rowsum(P dP), as the first version did."""
+    output o instead of rowsum(P dP), as the first version did; with
+    ``width``, run at that compiled width on zero-padded columns."""
     from repro_torch.kernels import ref
     f = torch.float32
+    d_out = q.shape[-1]
+    scale = 1.0 / math.sqrt(d_out)
+    lse2 = ref.attention_lse_ref(q, k, causal=causal) * LOG2E
+    if d_from_out:
+        o = ref.attention_ref(q, k, v, causal=causal)
+    q, k, v, do = _pad_cols(width, q, k, v, do)
     bh, t, d = q.shape
     s_len = k.shape[1]
     q32, k32, v32, do32 = (x.to(f) for x in (q, k, v, do))
-    scale = 1.0 / math.sqrt(d)
-    lse2 = ref.attention_lse_ref(q, k, causal=causal) * LOG2E
     qpos = torch.arange(t)[:, None]
     kpos = torch.arange(s_len)[None, :]
     keep = kpos < s_len
@@ -102,8 +137,7 @@ def bwd_kernel_model(q, k, v, do, *, causal, bq=64, bk=64, split=True,
                     torch.zeros((), dtype=f))
     dp = do32 @ v32.transpose(1, 2)
     if d_from_out:
-        o = ref.attention_ref(q, k, v, causal=causal)
-        dsum = (do32 * o.to(f)).sum(-1)
+        dsum = (do32[..., :d_out] * o.to(f)).sum(-1)
     else:
         dsum = torch.zeros((bh, t), dtype=f)
         for k0 in range(0, s_len, bk):            # the dq pass's first sweep
@@ -122,7 +156,8 @@ def bwd_kernel_model(q, k, v, do, *, causal, bq=64, bk=64, split=True,
         for part in ds_parts:
             dk = dk + part[:, q0:q0 + bq].transpose(1, 2) @ q32[:, q0:q0 + bq]
     bf = torch.bfloat16
-    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+    return tuple(x[..., :d_out].to(bf)
+                 for x in (dq * scale, dk * scale, dv))
 
 
 def peaked(q, k, *, causal, peak=0.99):
@@ -178,3 +213,78 @@ def group_scan(xi, dt, bmat, cmat, a, h0):
         ys.append(acc[..., 0])
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xi32)
     return y.to(xi.dtype), h[..., :s].contiguous()
+
+
+def chunk_scan_bwd(xi, dt, bmat, cmat, a, h0, dy, dh_last, *, chunk=32):
+    """The chunk-parallel backward kernel's arithmetic in fp32: (dxi, ddt,
+    dB, dC, da, dh0) of the scan against ``dy`` and ``dh_last``."""
+    f = torch.float32
+    xi, dt, bm, cm, a, h0, dy, dhl = (x.to(f) for x in (
+        xi, dt, bmat, cmat, a, h0, dy, dh_last))
+    b_len, t_len, i_len = xi.shape
+    a2 = a * torch.tensor(LOG2E, dtype=f)
+    n_ch = -(-t_len // chunk)
+    spans = [(c * chunk, min(chunk, t_len - c * chunk)) for c in range(n_ch)]
+    col = lambda x, t: x[:, t, :, None]           # [B, I, 1]
+    row = lambda x, t: x[:, t, None, :]           # [B, 1, S]
+    step = lambda h, t: torch.exp2(col(dt, t) * a2) * h + \
+        col(dt, t) * col(xi, t) * row(bm, t)
+    # 1. each chunk's local states and sum of dt
+    u, w, sdt = [], [], []
+    for t0, n in spans:
+        h = torch.zeros_like(h0)
+        g = torch.zeros_like(h0)
+        sd = torch.zeros((b_len, i_len), dtype=f)
+        for k in range(n):
+            tr = t0 + n - 1 - k
+            h = step(h, t0 + k)
+            sd = sd + dt[:, t0 + k]
+            g = (g + col(dy, tr) * row(cm, tr)) * torch.exp2(col(dt, tr) * a2)
+        u.append(h)
+        w.append(g)
+        sdt.append(sd)
+    # 2. the walk over the chunks
+    decay = [torch.exp2(a2 * sd[..., None]) for sd in sdt]
+    h_in, g_in = [None] * n_ch, [None] * n_ch
+    h = h0
+    for c in range(n_ch):
+        h_in[c] = h
+        h = decay[c] * h + u[c]
+    g = dhl
+    for c in reversed(range(n_ch)):
+        g_in[c] = g
+        g = decay[c] * g + w[c]
+    dh0 = g
+    # 3. each chunk's walk
+    dxi, ddt = torch.zeros_like(xi), torch.zeros_like(xi)
+    dB, dC = torch.zeros_like(bm), torch.zeros_like(cm)
+    da_parts = []
+    for c, (t0, n) in enumerate(spans):
+        hs = []
+        h = h_in[c]
+        for t in range(t0, t0 + n):
+            h = step(h, t)
+            hs.append(h)
+        for k, t in enumerate(range(t0, t0 + n)):
+            dC[:, t] = (col(dy, t) * hs[k]).sum(1)
+        g, da_acc = g_in[c], torch.zeros_like(h0)
+        for k in reversed(range(n)):
+            t = t0 + k
+            hp = hs[k - 1] if k > 0 else h_in[c]
+            dtv, xv, dyv = col(dt, t), col(xi, t), col(dy, t)
+            bv, cv = row(bm, t), row(cm, t)
+            da = torch.exp2(dtv * a2)
+            g = g + dyv * cv
+            dB[:, t] = (g * dtv * xv).sum(1)
+            dda = g * hp
+            ddt[:, t] = (dda * da * a + g * xv * bv).sum(-1)
+            dxi[:, t] = (g * dtv * bv).sum(-1)
+            da_acc = da_acc + dda * da * dtv
+            g = g * da
+        da_parts.append(da_acc)
+    # 4. da over b, then the chunks, in order
+    da = torch.zeros_like(a)
+    for b in range(b_len):
+        for part in da_parts:
+            da = da + part[b]
+    return dxi, ddt, dB, dC, da, dh0
