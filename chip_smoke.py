@@ -160,6 +160,27 @@ of which fails the run when it fails:
    process.  The kernels line gains the two backward kernels with their training
    launches.
 
+16. sharded (run after phase 15; its two timed training runs, 16.d's
+   fresh process and then 16.a, run right after 15.c, one after the
+   other, so that both time the same host) -- the sharding slice on a 1x1
+   ``DeviceMesh`` (``launch.mesh.make_debug_mesh``, NCCL, one rank): 16.a
+   yi-6b at full width, depth 8, 1 x 4096 tokens, 12 steps of
+   ``build_cell``'s training cell against ``make_train_step`` without a
+   mesh from the same seed (losses and every updated leaf within 1e-6
+   relative; 16 ``flash_attention`` and 8 ``flash_attention_bwd``
+   launches a step, under ``local_map``, in both), sec_per_step and peak
+   memory of both; 16.b ``ServeEngine(cfg, mesh)`` on the device
+   engine's falcon-mamba-7b weights: a 2,048-token prefill (64
+   ``selective_scan`` launches) held at phase 14's bar, then 4 greedy
+   tokens equal to the device engine's; 16.c ``roofline.cim_sweep`` over
+   the ten archs (seq 512, ``vanilla-dcim``, 5 mm^2, exhaustive) through
+   the DSE service on the card, on a fresh store (``strategy_eval``
+   launches); 16.d the abstract cell report of every arch x shape
+   (``dryrun.run_cell``) and ``python -m repro_torch.launch.dryrun --arch
+   yi-6b --shape train_4k --set n_layers=8 --batch 1 --measure`` in a
+   fresh process held against 16.a's sharded step (its fastest timed
+   step) and peak memory within 10 %.  The kernels line adds phase 16's counted launches.
+
 Timed and counted ``co_explore`` drives (phases 6, 9, 10, 11) pass
 ``engine=``, the bypass of the service, so a repeat times the engine and
 not a store hit; phase 5's Table II runs go through the service.
@@ -2494,7 +2515,8 @@ def train_cli(torch, cuda: bool, configs, card: str) -> None:
           + " | ".join(lines) + f"; {card}", flush=True)
 
 
-def phase_train(torch, ops, ref, dev, card, configs=None, rng=None) -> dict:
+def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
+                after_cli=None) -> dict:
     """Phase 15: 15.a each backward kernel against its plain version at
     the full-width shapes of the training path and at ragged ones, timed;
     15.b per config of ``TRAIN_ARCHS`` (default: full width, depth
@@ -2507,7 +2529,8 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None) -> dict:
     the kernels' share of a step and peak memory; 15.c (``train_cli``,
     before 15.b).  Returns each backward
     kernel's training launches and measured cases, and the forward
-    kernels' training launches."""
+    kernels' training launches.  ``after_cli`` (a callable) runs right
+    after 15.c, while this process still holds the least memory."""
     import dataclasses
     import functools
     import tempfile
@@ -2547,6 +2570,8 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None) -> dict:
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of it in live "
               f"tensors; {card}", flush=True)
     train_cli(torch, cuda, configs, card)
+    if after_cli is not None:
+        after_cli()
 
     # ---- 15.b the trainer -------------------------------------------------
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2819,6 +2844,320 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None) -> dict:
               f"{card}", flush=True)
 
     print(f"[train] phase 15 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 16: the sharded paths on a 1x1 DeviceMesh, cim_sweep, the cell report
+# ---------------------------------------------------------------------- #
+#: 16.a: the training cell (arch, tokens, depth) and its steps (the steps
+#: after two warm-up steps, as in the cell report's ``--measure``, are
+#: timed); held against the unsharded step: every leaf and loss within
+#: this relative gap (a mesh of one rank computes the same ops on the
+#: same data)
+SHARD_TRAIN, SHARD_STEPS, SHARD_RTOL = ("yi-6b", 4096, 8), 12, 1e-6
+#: 16.b: the serving engine on the mesh (arch, prompt tokens, new tokens)
+SHARD_SERVE = ("falcon-mamba-7b", 2048, 4)
+#: 16.d: the cell report's --measure against 16.a, relative: peak memory,
+#: and the step time as the fastest timed step of each.  The sharded step
+#: is host-sensitive (its host work is near the card's), and the host's
+#: speed drifts over a run, so the two are timed one right after the
+#: other, and a busy host only adds to a step.
+MEASURE_RTOL = 0.10
+
+
+def dryrun_measure(cuda: bool, configs, card: str) -> dict:
+    """16.d's measured cell, ``python -m repro_torch.launch.dryrun --arch
+    yi-6b --shape train_4k --set n_layers=8 --batch 1 --measure`` in a
+    fresh process (run after 15.c, while this process holds the least
+    memory); the reduced config on the CPU when ``configs`` is given."""
+    import gc
+
+    gc.collect()
+    if cuda:
+        import torch
+        torch.cuda.empty_cache()
+    arch, t_len, depth = SHARD_TRAIN
+    cmd = ["--arch", arch, "--shape", "train_4k", "--set",
+           f"n_layers={depth}", "--batch", "1", "--measure"]
+    if configs:
+        cfg = configs[arch]
+        cmd += [f"--set={k}={getattr(cfg, k)}" for k in (
+            "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab")]
+        cmd += ["--set", f"seq={t_len}", "--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cmd], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"launch.dryrun --measure exited {proc.returncode}:\n"
+             f"{proc.stdout}\n{proc.stderr}")
+    rec = json.loads(lines[0])
+    if rec.get("status") != "OK" or "measured" not in rec:
+        fail(f"launch.dryrun --measure: {rec}")
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"[sharded] 16.d python -m repro_torch.launch.dryrun "
+          f"{' '.join(cmd)}: exit 0 in {rec['wall_s']:.2f} s: "
+          + json.dumps(rec["measured"]) + f"; {card}", flush=True)
+    return rec
+
+
+def shard_train(torch, ops, dev, card, configs=None) -> dict:
+    """16.a on a 1x1 ``DeviceMesh`` (one rank; NCCL on the card): the
+    training cell of ``build_cell`` for ``SHARD_STEPS`` steps against the
+    unsharded step from the same seed (losses and every updated leaf,
+    kernel launches a step, sec_per_step, fastest step, peak memory).
+    Run right after :func:`dryrun_measure`'s fresh process, which 16.d
+    holds to it.  ``configs`` maps an arch to its config (the CPU
+    rehearsal's reduced ones)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}
+    counts = lambda: {k: w.launches for k, w in wrappers.items()}
+    mesh = make_debug_mesh(1, 1, device_type=dev.type)
+    arch, t_len, depth = SHARD_TRAIN
+    cfg = configs[arch] if configs else dataclasses.replace(
+        get_arch(arch), n_layers=depth)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=t_len,
+                                global_batch=1)
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    stream = SyntheticLMStream(DataConfig(seq_len=t_len, global_batch=1,
+                                          vocab=cfg.vocab, seed=0))
+    cell, _ = build_cell(cfg, shape, mesh, optimizer=AdamW(opt_cfg))
+    runs = {}
+    for name, model, step in (
+            ("unsharded", build_model(cfg), make_train_step(
+                build_model(cfg), AdamW(opt_cfg))),
+            ("sharded", cell.model, cell)):
+        if cuda:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(0, dev, trainable=True)
+        opt = AdamW(opt_cfg).init(params)
+        reset_launches(ops)
+        losses, secs = [], []
+        for i in range(SHARD_STEPS):
+            batch = {k: torch.as_tensor(v).to(dev)
+                     for k, v in stream.global_batch_at(i).items()}
+            sync()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            sync()
+            secs.append(time.perf_counter() - t0)
+        launches = counts()
+        leaves = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                  .detach().cpu() for n, p in params.named_parameters()}
+        placed = sorted({str(tuple(p.placements)) for p in
+                         params.parameters() if hasattr(p, "placements")})
+        runs[name] = dict(losses=losses, secs=secs, leaves=leaves,
+                          launches=launches, placed=placed,
+                          sec_per_step=statistics.median(
+                              secs[dryrun.MEASURE_WARMUP:]),
+                          fastest=min(secs[dryrun.MEASURE_WARMUP:]),
+                          peak=(torch.cuda.max_memory_allocated() - base)
+                          if cuda else 0)
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = 2 * cfg.n_layers * SHARD_STEPS
+        want["flash_attention_bwd"] = cfg.n_layers * SHARD_STEPS
+        if cuda and launches != want:
+            fail(f"16.a {name}: launches {launches}, expected {want}")
+        del params, opt, batch, metrics
+    a, b = runs["sharded"], runs["unsharded"]
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                         b["losses"]))
+    gaps = {n: float((a["leaves"][n].float() - v.float()).norm()
+                     / max(float(v.float().norm()), 1e-30))
+            for n, v in b["leaves"].items()}
+    worst = max(gaps, key=gaps.get)
+    equal = sum(torch.equal(a["leaves"][n], v) for n, v in b["leaves"].items())
+    print(f"[sharded] 16.a {arch} depth {cfg.n_layers}, 1 x {t_len} tokens, "
+          f"{SHARD_STEPS} steps through build_cell on the 1x1 mesh (leaf "
+          f"placements {a['placed']}): losses {a['losses']} vs unsharded "
+          f"{b['losses']} (max relative gap {loss_gap:.3e}); leaves "
+          f"bit-equal {equal} of {len(gaps)}, worst relative gap "
+          f"{gaps[worst]:.3e} at {worst} (bar {SHARD_RTOL}); launches a step "
+          f"{ {k: v / SHARD_STEPS for k, v in a['launches'].items() if v} }; "
+          f"sec_per_step (median of steps {dryrun.MEASURE_WARMUP + 1}-"
+          f"{SHARD_STEPS}) sharded "
+          f"{a['sec_per_step']:.4f} s vs unsharded {b['sec_per_step']:.4f} s "
+          f"(steps {[round(x, 4) for x in a['secs']]} / "
+          f"{[round(x, 4) for x in b['secs']]}); peak memory "
+          f"{a['peak'] / 2**30:.2f} / {b['peak'] / 2**30:.2f} GiB; {card}",
+          flush=True)
+    if loss_gap > SHARD_RTOL or gaps[worst] > SHARD_RTOL:
+        fail(f"16.a: the sharded cell is {loss_gap:.3e} (loss) / "
+             f"{gaps[worst]:.3e} ({worst}) from the unsharded step")
+    out = dict(sec_per_step=a["sec_per_step"], fastest=a["fastest"],
+               unsharded_sec_per_step=b["sec_per_step"], peak=a["peak"],
+               launches=a["launches"], bit_equal=equal, leaves=len(gaps))
+    del runs, a, b, cell
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(torch, ops, dev, card, measured: dict, trained: dict,
+                  configs=None) -> dict:
+    """Phase 16 on a 1x1 ``DeviceMesh`` (one rank; NCCL on the card):
+    ``trained`` is 16.a's record (:func:`shard_train`); 16.b
+    ``ServeEngine(cfg, mesh)``'s prefill against the device engine's on
+    the same weights, then greedy decode steps with equal tokens; 16.c
+    ``roofline.cim_sweep`` over the ten archs on the card; 16.d the
+    abstract cell report of every arch x shape and ``measured`` (from
+    :func:`dryrun_measure`) against 16.a.  ``configs`` maps an arch to
+    its config (the CPU rehearsal's reduced ones).  Returns each kernel's
+    launches in the counted runs."""
+    import tempfile
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.service import reset_default_service
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}
+    counts = lambda: {k: w.launches for k, w in wrappers.items()}
+    mesh = make_debug_mesh(1, 1, device_type=dev.type)
+    print(f"[sharded] mesh {mesh}; {card}", flush=True)
+    out: dict = {"train": trained}
+
+    # ---- 16.b ServeEngine(cfg, mesh) against the device engine ----------
+    arch, t_len, n_new = SHARD_SERVE
+    cfg = configs[arch] if configs else get_arch(arch)
+    plain = ServeEngine(cfg, dev)
+    meshed = ServeEngine(cfg, mesh, params=plain.params)
+    prompt = np.random.default_rng(16).integers(1, cfg.vocab, (1, t_len))
+    logits = {}
+    for name, eng in (("device", plain), ("mesh", meshed)):
+        eng._prefill(eng.params, {"tokens": eng._tokens(prompt)})   # warm-up
+        reset_launches(ops)
+        sync()
+        t0 = time.perf_counter()
+        lg, _ = eng._prefill(eng.params, {"tokens": eng._tokens(prompt)})
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        if cuda:
+            expect_launches(f"16.b {name} prefill", launches,
+                            "selective_scan", cfg.n_layers)
+        logits[name] = lg.full_tensor() if hasattr(lg, "full_tensor") \
+            else lg
+        prefill_n, prefill_wall = launches["selective_scan"], wall
+    gap = logit_gap(logits["mesh"], logits["device"])
+    check_gap(f"16.b {arch} prefill on the mesh", gap)
+    exact = bool(torch.equal(logits["mesh"], logits["device"]))
+    del logits
+    gen = GenerationConfig(max_new_tokens=n_new)
+    reset_launches(ops)
+    res_mesh = meshed.generate([list(prompt[0])], gen)
+    gen_launches = counts()["selective_scan"]
+    res_dev = plain.generate([list(prompt[0])], gen)
+    if not np.array_equal(res_mesh["tokens"], res_dev["tokens"]):
+        fail(f"16.b: the mesh engine decoded {res_mesh['tokens']}, the "
+             f"device engine {res_dev['tokens']}")
+    print(f"[sharded] 16.b {arch} ServeEngine(cfg, mesh), 1 x {t_len} "
+          f"prompt: {prefill_n} selective_scan launches (local_map) in "
+          f"{prefill_wall:.4f} s, logits against the device engine's on the same weights: max "
+          f"|d| {gap['max_abs']:.4g} = {gap['rel']:.4g} of max |logit| (bar "
+          f"{SERVE_REL_TOL}), top-1 {gap['top1']:.4f}, bit-equal {exact}; "
+          f"generate {n_new} greedy tokens {res_mesh['tokens'].tolist()} "
+          f"equal to the device engine's, {gen_launches} selective_scan "
+          f"launches; prefill_s {res_mesh['prefill_s']:.4f} / "
+          f"{res_dev['prefill_s']:.4f} s, decode_s {res_mesh['decode_s']:.4f}"
+          f" / {res_dev['decode_s']:.4f} s (mesh / device); {card}",
+          flush=True)
+    out["serve"] = dict(launches=prefill_n + gen_launches, exact=exact,
+                        gap=gap)
+    del plain, meshed
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- 16.c the CIM sweep through the DSE service ----------------------
+    store = tempfile.mkdtemp(prefix="cim-tuner-smoke-sweep-")
+    os.environ["CIM_TUNER_RESULT_STORE"] = store
+    reset_default_service()
+    archs = list(configs) if configs else list(ARCH_IDS)
+    reset_launches(ops)
+    sync()
+    t0 = time.perf_counter()
+    rows = roofline.cim_sweep(archs, 5.0, "vanilla-dcim", seq=512,
+                              method="exhaustive", device=dev.type,
+                              emit=lambda s: print(f"[sharded] 16.c {s}",
+                                                   flush=True))
+    sync()
+    sweep_s = time.perf_counter() - t0
+    se_n = ops.job_objective.launches + ops.strategy_eval.launches
+    reset_default_service()
+    shutil.rmtree(store, ignore_errors=True)
+    if len(rows) != len(archs) or any(r["cached"] for r in rows) or not all(
+            math.isfinite(r[k]) and r[k] > 0 for r in rows
+            for k in ("tops_w", "gops")):
+        fail(f"16.c: cim_sweep rows {rows}")
+    if cuda and se_n == 0:
+        fail("16.c: cim_sweep launched no strategy_eval kernel")
+    print(f"[sharded] 16.c cim_sweep over {len(rows)} archs (seq 512, "
+          f"vanilla-dcim, 5 mm^2, exhaustive): {sweep_s:.3f} s, {se_n} "
+          f"strategy_eval launches; {card}", flush=True)
+    out["sweep"] = dict(rows=rows, wall_s=sweep_s, launches=se_n)
+
+    # ---- 16.d the cell report ------------------------------------------
+    t0 = time.perf_counter()
+    report = [dryrun.run_cell(a_id, s_id, device=dev.type)
+              for a_id in ARCH_IDS for s_id in SHAPES]
+    for r in report:
+        if r["status"] == "OK" and not (r["state_bytes"] > 0 and
+                                        r["model_flops"] > 0):
+            fail(f"16.d: cell record {r}")
+    print(f"[sharded] 16.d the abstract cell report, {len(report)} cells "
+          f"in {time.perf_counter() - t0:.2f} s (arch shape status state "
+          f"GB fits): " + "; ".join(
+              f"{r['arch']} {r['shape']} {r['status']}"
+              + (f" {r['state_bytes'] / 1e9:.1f} {r['fits']}"
+                 if r["status"] == "OK" else "") for r in report)
+          + f"; {card}", flush=True)
+    m = measured["measured"]
+    fastest = out["train"]["fastest"]
+    step_gap = abs(m["step_s_min"] - fastest) / fastest
+    print(f"[sharded] 16.d --measure (fresh process) against 16.a: fastest "
+          f"step {m['step_s_min']:.4f} s vs {fastest:.4f} s (gap "
+          f"{step_gap:.4f}; medians {m['step_s']:.4f} / "
+          f"{out['train']['sec_per_step']:.4f} s), peak "
+          + (f"{m['peak_bytes'] / 2**30:.2f} GiB vs "
+             f"{out['train']['peak'] / 2**30:.2f} GiB, model FLOPs share "
+             f"{m['model_flops_share']:.4f}" if cuda else "not measured (CPU)")
+          + f", launches a step {m['launches_per_step']}; {card}",
+          flush=True)
+    if cuda:
+        peak_gap = abs(m["peak_bytes"] - out["train"]["peak"]) / \
+            out["train"]["peak"]
+        if step_gap > MEASURE_RTOL or peak_gap > MEASURE_RTOL:
+            fail(f"16.d: the measured cell is {step_gap:.4f} (step) / "
+                 f"{peak_gap:.4f} (peak) from 16.a (bar {MEASURE_RTOL})")
+        want = {"flash_attention": 2.0 * SHARD_TRAIN[2],
+                "flash_attention_bwd": 1.0 * SHARD_TRAIN[2]}
+        if m["launches_per_step"] != want:
+            fail(f"16.d: launches a step {m['launches_per_step']}, expected "
+                 f"{want}")
+    print(f"[sharded] phase 16 took {time.perf_counter() - t_phase:.1f} s; "
           f"{card}", flush=True)
     return out
 
@@ -3520,11 +3859,31 @@ def main() -> None:
         print(f"[build] {lib.name} (started in phase 2): "
               f"{ptxas_summary(report)}; full report in {lib.name}.ptxas.txt")
         check_bwd_build(build, name, lib, report)
-    train = phase_train(torch, ops, ref, dev, card)
+    # 16.d's measured cell runs in a fresh process right after 15.c, while
+    # this process holds the least memory (after 15.b the card lacks room),
+    # and 16.a's timed cell right after it, on the same host's time
+    measured: dict = {}
+    trained: dict = {}
+
+    def sharded_cells():
+        measured.update(dryrun_measure(True, None, card))
+        trained.update(shard_train(torch, ops, dev, card))
+
+    train = phase_train(torch, ops, ref, dev, card, after_cli=sharded_cells)
     clock.done("15 train")
+
+    # ---- 16. sharded: build_cell and ServeEngine on a 1x1 mesh, cim_sweep,
+    # the cell report ------------------------------------------------------
+    sharded = phase_sharded(torch, ops, dev, card, measured, trained)
+    clock.done("16 sharded")
     clock.summary()
 
     t32 = timing["float32"]
+    # phase 16's counted runs: 16.a's sharded training cell, 16.b's mesh
+    # engine (prefill and generate), 16.c's sweep
+    shard_n = dict(sharded["train"]["launches"])
+    shard_n["selective_scan"] += sharded["serve"]["launches"]
+    shard_n["strategy_eval"] = sharded["sweep"]["launches"]
     new_lines = []
     for name, (source, replaces) in NEW_KERNELS.items():
         # the serve path's kernels report its first shape (14.a's prefill)
@@ -3534,8 +3893,9 @@ def main() -> None:
         new_lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(on_path["launches"].values()) if on_path
-            else cal_launches[name],
+            "launches": (sum(on_path["launches"].values()) if on_path
+                         else cal_launches[name]) + shard_n[name],
+            "sharded_launches": shard_n[name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "design": DESIGNS[name],
@@ -3555,8 +3915,9 @@ def main() -> None:
         new_lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": train[name]["launches"],
+            "launches": train[name]["launches"] + shard_n[name],
             "launches_by_arch": train[name]["by_arch"],
+            "sharded_launches": shard_n[name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "differentiates": forward,
@@ -3570,8 +3931,10 @@ def main() -> None:
         "replaces": REPLACES,
         # the paths phase 10 recorded, the service's cold run (12.1) and
         # phase 13's checkpoint and resume runs
-        "launches": se_launches + service_launches + verify_extra,
+        "launches": se_launches + service_launches + verify_extra
+        + shard_n["strategy_eval"],
         "service_launches": service_launches,
+        "sharded_launches": shard_n["strategy_eval"],
         "verify_launches": verify_extra + sum(
             sum(path_counts[name].values()) for name, *_ in verify_paths),
         "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],

@@ -4,9 +4,10 @@
 The stream is a stateless function of (seed, step) so a restarted run
 resumes bit-exact mid-epoch without replaying data.  Batches are built
 with numpy exactly as the reference builds them (the same generator, the
-same draws), so the two packages see the same tokens; only the last hop
-differs: the reference shards a batch over a mesh (``shard_batch``), the
-port copies it to one device (:func:`to_device`, pinned and
+same draws), so the two packages see the same tokens.  The last hop
+places a batch on a ``DeviceMesh`` (:func:`shard_batch`: the batch dim
+over the data axes, each rank cutting its rows from the global batch it
+built) or copies it to one device (:func:`to_device`, pinned and
 non-blocking on a card).
 
 ``SyntheticLMStream`` generates structured pseudo-text (Zipfian unigrams +
@@ -101,10 +102,26 @@ def to_device(batch: dict, device) -> dict:
     return {k: put(v) for k, v in batch.items()}
 
 
-def make_batch_iterator(stream, device, start_step: int = 0,
+def shard_batch(batch: dict, mesh) -> dict:
+    """Place a global numpy batch onto the mesh (batch dim over data axes;
+    replicated where they do not divide it)."""
+    from repro_torch.models import sharding as sh
+
+    local = to_device(batch, mesh.device_type)
+    return {k: sh.place(v, sh._fit((sh.dp_axes(mesh),) + (None,) *
+                                   (v.ndim - 1), tuple(v.shape), mesh), mesh)
+            for k, v in local.items()}
+
+
+def make_batch_iterator(stream, mesh, start_step: int = 0,
                         prefetch: int = 2) -> Iterator[dict]:
     """Background-threaded, prefetching, restartable iterator of batches
-    on ``device``; closing it stops its producer thread."""
+    placed on ``mesh`` (a ``DeviceMesh``: :func:`shard_batch`) or copied
+    to a device (:func:`to_device`); closing it stops its producer
+    thread."""
+    from repro_torch.launch.mesh import is_mesh
+
+    put = shard_batch if is_mesh(mesh) else to_device
     q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
 
@@ -127,7 +144,7 @@ def make_batch_iterator(stream, device, start_step: int = 0,
     th.start()
     try:
         while True:
-            yield to_device(q.get(), device)
+            yield put(q.get(), mesh)
     finally:
         stop.set()
         th.join(timeout=2.0)

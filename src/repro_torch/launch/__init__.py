@@ -1,1 +1,2 @@
-"""Launchers: serve."""
+"""Launchers: train, serve, the mesh, the cell report (dryrun) and the
+roofline / CIM sweep."""

@@ -4,7 +4,9 @@
         --batch 4 --prompt-len 512 --new-tokens 32
 
 runs on the card; ``--device cpu --smoke`` runs the reduced config on the
-CPU.  The prompts are seeded random token ids, as in the reference.
+CPU; ``--mesh 1x1`` serves on a one-rank ("data", "model") ``DeviceMesh``
+on ``--device``'s kind.  The prompts are seeded random token ids, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -22,15 +24,18 @@ def main() -> None:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) DeviceMesh of D x M ranks")
     args = ap.parse_args()
 
     from repro_torch.configs import get_arch
+    from repro_torch.launch.train import mesh_or_device
     from repro_torch.serve.engine import GenerationConfig, ServeEngine
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    engine = ServeEngine(cfg, args.device)
+    engine = ServeEngine(cfg, mesh_or_device(args.mesh, args.device))
     rng = np.random.default_rng(0)
     prompts = [list(rng.integers(1, cfg.vocab, rng.integers(
         args.prompt_len // 2, args.prompt_len + 1)))

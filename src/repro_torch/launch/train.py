@@ -6,8 +6,11 @@
 ``--smoke`` uses the family-faithful reduced config (CPU-runnable); omit it
 on a card for the full architecture (with ``--set n_layers=8`` to fit its
 training state on one H100).  Any ArchConfig field can be overridden with
-``--set field=value``.  ``--device`` (the card by default) takes the place
-of the reference's ``--mesh``.
+``--set field=value``.  ``--mesh DxM`` trains on a ("data", "model")
+``DeviceMesh`` (``launch.mesh.make_debug_mesh``; ``--mesh 1x1`` is one
+rank, a larger mesh needs a process group of its size started by the
+caller); without it the trainer runs on ``--device`` alone (the card by
+default; ``cpu`` for the CPU, which also holds a ``--mesh``'s ranks).
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ def main() -> None:
                     help="flat int32 token file (default: synthetic stream)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cuda, cuda:1, cpu)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train on a (data, model) DeviceMesh of D x M ranks")
     ap.add_argument("--set", action="append", default=[],
                     help="ArchConfig override field=value")
     args = ap.parse_args()
@@ -59,9 +64,22 @@ def main() -> None:
         stream = TokenFileStream(
             DataConfig(seq_len=args.seq, global_batch=args.batch,
                        vocab=cfg.vocab), args.data_file)
-    trainer = Trainer(cfg, tcfg, args.device, stream=stream)
+    trainer = Trainer(cfg, tcfg, mesh_or_device(args.mesh, args.device),
+                      stream=stream)
     trainer.train()
     print(f"straggler steps: {trainer.straggler_steps}")
+
+
+def mesh_or_device(mesh: str | None, device: str):
+    """``make_debug_mesh`` of ``--mesh DxM`` on ``--device``'s kind, or
+    the device itself without ``--mesh``."""
+    if mesh is None:
+        return device
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    nd, nm = (int(x) for x in mesh.split("x"))
+    return make_debug_mesh(nd, nm, device_type=torch.device(device).type)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ Initialisers draw from an explicit ``torch.Generator`` on its device.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as sh
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -60,9 +62,18 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # init helpers
 # ---------------------------------------------------------------------- #
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` to make parameters on the meta
+    device (which has no generator): the initialisers then give shapes
+    and dtypes, with no draw and no allocation."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
     """fp32 standard normal draws from ``gen`` on its device, times
-    ``scale``."""
+    ``scale`` (an fp32 meta tensor of the shape for :class:`ShapeOnly`)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * scale
 
@@ -84,10 +95,14 @@ def rmsnorm_params(d: int, device=None) -> dict:
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return _rmsnorm(p, x, eps).to(x.dtype)
+
+
+def _rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The norm in fp32, before its cast back to ``x``'s dtype."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
-    return y.to(x.dtype)
+    return xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])
 
 
 def layernorm_params(d: int, device=None) -> dict:
@@ -96,15 +111,31 @@ def layernorm_params(d: int, device=None) -> dict:
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return _layernorm(p, x, eps).to(x.dtype)
+
+
+def _layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    return y.to(x.dtype)
+    return (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
 
 
 def apply_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
-    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+    """A DTensor ``x`` (a model on a mesh) is normed on each rank's local
+    rows (``sharding.local_rowwise``) in fp32 and cast back outside them,
+    so that the gradient that reaches the norm with its sums pending is
+    summed across ranks in fp32."""
+    if not sh.is_dtensor(x):
+        return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+    if kind == "rmsnorm":
+        y = sh.local_rowwise(lambda x, s: _rmsnorm({"scale": s}, x), x,
+                             p["scale"])
+    else:
+        y = sh.local_rowwise(
+            lambda x, s, b: _layernorm({"scale": s, "bias": b}, x), x,
+            p["scale"], p["bias"])
+    return y.to(x.dtype)
 
 
 def norm_params(kind: str, d: int, device=None) -> dict:
@@ -116,7 +147,11 @@ def norm_params(kind: str, d: int, device=None) -> dict:
 # rotary position embeddings
 # ---------------------------------------------------------------------- #
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [B, T, H, dh]; positions: [B, T] (absolute)."""
+    """x: [B, T, H, dh]; positions: [B, T] (absolute).  A DTensor ``x``
+    is rotated on each rank's local rows (``sharding.local_rowwise``)."""
+    if sh.is_dtensor(x):
+        return sh.local_rowwise(lambda x, pos: rope(x, pos, theta), x,
+                                positions, positional=True)
     dh = x.shape[-1]
     half = dh // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -304,7 +339,13 @@ def flash_prefill(q, k, v, *, causal: bool, window: int | None,
     the batch, bf16 and contiguous; the output is bf16 [B, T, H, dh] as
     the reference's.  A head width the kernel does not take (above 256,
     or not a multiple of 8: ``flash_attention.compiled_width``) raises.
+    DTensors (a model on a mesh) run it on each rank's local heads and
+    batch rows (``sharding.local_attention``).
     """
+    if sh.is_dtensor(q):
+        return sh.local_attention(functools.partial(
+            flash_prefill, causal=causal, window=window, kernel=kernel),
+            q, k, v)
     b, t, h, dh = q.shape
     if kernel is None:
         if q.device.type != "cuda":
@@ -402,6 +443,16 @@ def mlp_params(gen, d_model: int, d_ff: int, gated: bool) -> dict:
 
 
 def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    """A DTensor ``x`` runs on each rank's local tensors, the hidden units
+    split over the mesh dim that shards them and the output's sums pending
+    there (``sharding.local_dense``)."""
+    if sh.is_dtensor(x):
+        names = ("w_up", "w_gate", "w_down") if "w_gate" in p else \
+            ("w_up", "w_down")
+        return sh.local_dense(
+            lambda x, *ws: mlp_apply(dict(zip(names, ws)), x, act),
+            x, tuple(p[n] for n in names),
+            w_dims=(1, 1, 0)[-len(names):])
     xc = x.to(COMPUTE_DTYPE)
     up = xc @ p["w_up"].to(COMPUTE_DTYPE)
     if "w_gate" in p:

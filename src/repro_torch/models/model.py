@@ -8,6 +8,11 @@ the reference's ``models/model.py`` in PyTorch.
 reference's branches on the CPU; passing the plain twins
 (``layers.attention_any``, ``ssm.plain_scan``) runs the same model without
 the kernels.  Two models built from one config share their parameters.
+``shard_act`` is the activation sharding hook (``sharding.make_shard_act``
+of a mesh; the identity by default), placed where the reference places
+it.  ``abstract_params`` / ``abstract_cache`` are the reference's
+``eval_shape`` twins: meta-device tensors of the right shapes and dtypes,
+with no draw and no allocation.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import COMPUTE_DTYPE, flash_prefill
+from repro_torch.models.layers import COMPUTE_DTYPE, ShapeOnly, flash_prefill
+from repro_torch.models.sharding import Identity, is_dtensor
 
 MOE_AUX_COEF = 0.01
 
@@ -25,23 +31,39 @@ class Model:
     """The functions of one architecture over its parameters (a
     :class:`~repro_torch.models.transformer.ParamTree`).  ``loss`` is
     differentiable (the reference's, for ``jax.value_and_grad``);
-    ``prefill`` and ``decode`` run under ``torch.inference_mode``."""
+    ``prefill`` and ``decode`` run under ``torch.inference_mode`` (under
+    ``no_grad`` on a mesh)."""
 
     def __init__(self, cfg: ArchConfig, *, attention=flash_prefill,
-                 scan=ssm_lib.kernel_scan):
+                 scan=ssm_lib.kernel_scan, shard_act=Identity):
         self.cfg = cfg
         self.attention = attention
         self.scan = scan
+        self.shard_act = shard_act
 
     def init(self, seed: int = 0, device="cuda",
              trainable: bool = False) -> tf.ParamTree:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
         on ``device``: a serving tree, or with ``trainable`` fp32 masters
-        that require gradients."""
-        gen = torch.Generator(device=torch.device(device))
-        gen.manual_seed(seed)
+        that require gradients.  On the meta device: shapes and dtypes
+        only."""
+        if torch.device(device).type == "meta":
+            gen = ShapeOnly()
+        else:
+            gen = torch.Generator(device=torch.device(device))
+            gen.manual_seed(seed)
         with torch.no_grad():
             return tf.lm_init(gen, self.cfg, trainable)
+
+    def abstract_params(self, seed: int = 0,
+                        trainable: bool = True) -> tf.ParamTree:
+        """The parameters on the meta device: the trainable fp32 tree (the
+        reference's dtypes), or with ``trainable=False`` the serving
+        tree."""
+        return self.init(seed, "meta", trainable)
+
+    def abstract_cache(self, batch: int, max_len: int) -> dict:
+        return self.init_cache(batch, max_len, "meta")
 
     def reference_ndims(self, params: tf.ParamTree) -> list[int]:
         """Each parameter's dims (in ``params.parameters()`` order) in
@@ -60,7 +82,9 @@ class Model:
             out.append(p.dim() + int(stacked))
         return out
 
-    def param_count(self, params: tf.ParamTree) -> int:
+    def param_count(self, params: tf.ParamTree | None = None) -> int:
+        """The parameters' count (of the abstract tree by default)."""
+        params = self.abstract_params() if params is None else params
         return sum(p.numel() for p in params.parameters())
 
     def init_cache(self, batch_size: int, max_len: int, device="cuda") -> dict:
@@ -76,12 +100,13 @@ class Model:
         mem = batch["memory"].to(COMPUTE_DTYPE)
         if self.cfg.encoder_layers:
             mem = tf.encode_memory(params, self.cfg, mem,
-                                   attention=self.attention)
+                                   attention=self.attention,
+                                   shard_act=self.shard_act)
         return mem
 
     def _apply(self, params, tokens, **kw):
         return tf.lm_apply(params, self.cfg, tokens, attention=self.attention,
-                           scan=self.scan, **kw)
+                           scan=self.scan, shard_act=self.shard_act, **kw)
 
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """Next-token loss (and its metrics) of ``batch["tokens"]``
@@ -95,30 +120,38 @@ class Model:
             metrics = dict(metrics, moe_aux=aux)
         return l, metrics
 
-    @torch.inference_mode()
     def prefill(self, params, batch) -> tuple[torch.Tensor, dict]:
         """Logits [B, T, V] of ``batch["tokens"]`` and the caches after
         them (``batch["caches"]``, empty, or fresh ones sized to the
         prompt)."""
         tokens = batch["tokens"]
         b, t = tokens.shape
-        caches = batch.get("caches")
-        if caches is None:
-            caches = self.init_cache(b, t, tokens.device)
-        logits, new_stack, _ = self._apply(
-            params, tokens, caches=caches["stack"],
-            memory=self._memory(params, batch), pos_offset=0)
+        with _serving(params):
+            caches = batch.get("caches")
+            if caches is None:
+                caches = self.init_cache(b, t, tokens.device)
+            logits, new_stack, _ = self._apply(
+                params, tokens, caches=caches["stack"],
+                memory=self._memory(params, batch), pos_offset=0)
         return logits, {"stack": new_stack, "step": caches["step"] + t}
 
-    @torch.inference_mode()
     def decode(self, params, caches, tokens) -> tuple[torch.Tensor, dict]:
-        logits, new_stack, _ = self._apply(
-            params, tokens, caches=caches["stack"], memory=None,
-            pos_offset=caches["step"])
+        with _serving(params):
+            logits, new_stack, _ = self._apply(
+                params, tokens, caches=caches["stack"], memory=None,
+                pos_offset=caches["step"])
         return logits, {"stack": new_stack,
                         "step": caches["step"] + tokens.shape[1]}
 
 
+def _serving(params):
+    """``torch.inference_mode``; ``no_grad`` for DTensor parameters (a
+    DTensor view cannot be made in inference mode)."""
+    if is_dtensor(next(params.parameters())):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def build_model(cfg: ArchConfig, *, attention=flash_prefill,
-                scan=ssm_lib.kernel_scan) -> Model:
-    return Model(cfg, attention=attention, scan=scan)
+                scan=ssm_lib.kernel_scan, shard_act=Identity) -> Model:
+    return Model(cfg, attention=attention, scan=scan, shard_act=shard_act)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import COMPUTE_DTYPE, dense_init, gelu, normal, silu
+from repro_torch.models import sharding as sh
+from repro_torch.models.sharding import Identity
 
 
 def moe_params(gen, d_model: int, d_ff: int, n_experts: int,
@@ -72,6 +74,15 @@ def _experts(p, buf: torch.Tensor, act: str, eq_in: str, eq_out: str):
     return torch.einsum(eq_out, h, p["w_down"].to(COMPUTE_DTYPE))
 
 
+def _replicated(fn, p, x, **kw):
+    """``fn(p, x, **kw)`` -> (y, aux) on replicated local tensors."""
+    keys = list(p._parameters) if isinstance(p, torch.nn.Module) else list(p)
+
+    def local(x, *leaves):
+        return fn(dict(zip(keys, leaves)), x, **kw)
+    return sh.local_replicated(local, 2, x, *(p[k] for k in keys))
+
+
 def moe_apply(
     p,
     x: torch.Tensor,              # [B, T, D]
@@ -80,7 +91,11 @@ def moe_apply(
     act: str = "swiglu",
     capacity_factor: float = 1.25,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [B, T, D], aux load-balancing loss scalar)."""
+    """Returns (output [B, T, D], aux load-balancing loss scalar).  On a
+    mesh it runs replicated (``sharding.local_replicated``)."""
+    if sh.is_dtensor(x):
+        return _replicated(moe_apply, p, x, top_k=top_k, act=act,
+                           capacity_factor=capacity_factor)
     b, t, d = x.shape
     n_exp = p["router"].shape[1]
     xt = x.reshape(b * t, d)
@@ -123,9 +138,17 @@ def moe_apply_row(
     top_k: int,
     act: str = "swiglu",
     capacity_factor: float = 1.25,
+    shard_act=Identity,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-batch-row-local dispatch: arrival order and capacity per row
-    (cf * T * k / E), token rows gathered into the slot table."""
+    (cf * T * k / E), token rows gathered into the slot table; the expert
+    buffers are pinned batch-sharded (``shard_act(.., "moe_buf")``).  On
+    a mesh it runs replicated (``sharding.local_replicated``): the aux
+    loss takes means over the whole batch."""
+    if sh.is_dtensor(x):
+        return _replicated(moe_apply_row, p, x, top_k=top_k, act=act,
+                           capacity_factor=capacity_factor,
+                           shard_act=shard_act)
     b, t, d = x.shape
     n_exp = p["router"].shape[1]
 
@@ -151,9 +174,10 @@ def moe_apply_row(
     buf = torch.gather(x.to(COMPUTE_DTYPE), 1,
                        token_of_slot[..., None].expand(b, n_exp * capacity, d))
     buf = torch.where(slot_valid[..., None], buf, 0)
-    buf = buf.reshape(b, n_exp, capacity, d)
+    buf = shard_act(buf.reshape(b, n_exp, capacity, d), "moe_buf")
 
-    out_e = _experts(p, buf, act, "becd,edf->becf", "becf,efd->becd")
+    out_e = shard_act(_experts(p, buf, act, "becd,edf->becf",
+                               "becf,efd->becd"), "moe_buf")
 
     out_flat = torch.cat([out_e.reshape(b, n_exp * capacity, d),
                           out_e.new_zeros((b, 1, d))], dim=1)

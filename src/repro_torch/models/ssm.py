@@ -10,12 +10,14 @@ every Mamba scan goes through the hand-written ``selective_scan`` kernel
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as sh
 from repro_torch.models.layers import (COMPUTE_DTYPE, dense_init, gelu, normal,
                                        sigmoid, silu, softplus)
 
@@ -185,7 +187,12 @@ def kernel_scan(xi, dt, bmat, cmat, a, h0, *, chunk: int = 256,
     differentiable ``ops.SelectiveScan`` (the forward kernel, and the
     backward kernel when a gradient is taken) for CUDA tensors, and for
     CPU tensors the whole call is :func:`plain_scan` (``chunk`` and
-    ``fused`` matter only there)."""
+    ``fused`` matter only there).  DTensors (a model on a mesh) run it on
+    each rank's local batch rows and channels (``sharding.local_scan``)."""
+    if sh.is_dtensor(xi):
+        return sh.local_scan(functools.partial(
+            kernel_scan, chunk=chunk, fused=fused, kernel=kernel),
+            xi, dt, bmat, cmat, a, h0)
     if kernel is None:
         if xi.device.type != "cuda":
             return plain_scan(xi, dt, bmat, cmat, a, h0, chunk=chunk,

@@ -44,6 +44,9 @@ from torch.utils import checkpoint as _checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.sharding import (Identity, data_parallel,
+                                         is_dtensor, local_block, local_dense,
+                                         local_rows, unshard)
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     NEG_INF,
@@ -176,15 +179,25 @@ def block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 # cached attention primitives (slot-based: ring buffer for SWA)
 # ====================================================================== #
 def _project_qkv(p, x, memory=None):
-    xc = x.to(COMPUTE_DTYPE)
-    src = memory.to(COMPUTE_DTYPE) if memory is not None else xc
-    q = torch.einsum("btd,dhk->bthk", xc, p["wq"].to(COMPUTE_DTYPE))
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(COMPUTE_DTYPE))
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(COMPUTE_DTYPE))
-    return q, k, v
+    src = memory if memory is not None else x
+    proj = _project
+    if is_dtensor(x):
+        # on a mesh: each rank's local heads (sharding.local_dense)
+        proj = lambda x, w: local_dense(_project, x, (w,), w_dims=(1,),
+                                        out_dim=2)
+    return proj(x, p["wq"]), proj(src, p["wk"]), proj(src, p["wv"])
+
+
+def _project(x, w):
+    return torch.einsum("btd,dhk->bthk", x.to(COMPUTE_DTYPE),
+                        w.to(COMPUTE_DTYPE))
 
 
 def _attn_out(p, out):
+    if is_dtensor(out):
+        # each rank's local heads, their sum pending (sharding.local_dense)
+        return local_dense(lambda o, w: _attn_out({"wo": w}, o), out,
+                           (p["wo"],), w_dims=(0,), x_dim=2)
     return torch.einsum("bthk,hkd->btd", out.to(COMPUTE_DTYPE),
                         p["wo"].to(COMPUTE_DTYPE))
 
@@ -202,7 +215,11 @@ def attn3_params(gen, cfg: ArchConfig) -> dict:
 
 
 def _set_slots(buf: torch.Tensor, slots: torch.Tensor, val: torch.Tensor):
-    """``buf.at[:, slots].set(val)``, out of place."""
+    """``buf.at[:, slots].set(val)``, out of place.  A DTensor cache is
+    written on each rank's local rows (``index_put_`` has no DTensor
+    rule)."""
+    if is_dtensor(buf) or is_dtensor(val):
+        return local_rows(lambda b, v: _set_slots(b, slots, v), buf, val)
     out = buf.clone()
     out[:, slots] = val.to(buf.dtype)
     return out
@@ -214,10 +231,14 @@ def self_attention(
     window: int | None = None,
     cache: dict | None = None,
     attention=flash_prefill,
+    shard_act=Identity,
 ) -> tuple[torch.Tensor, dict | None]:
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, x)
     dev = x.device
+    if cfg.seq_shard_attn and not cfg.shard_attn:
+        # context parallelism: replicated-head archs shard the q-sequence
+        q = shard_act(q, "attn_q_seq")
 
     if cache is None:
         positions = torch.arange(t, device=dev)[None].expand(b, t)
@@ -348,57 +369,71 @@ def block_apply(
     memory: torch.Tensor | None = None,
     attention=flash_prefill,
     scan=ssm_lib.kernel_scan,
+    shard_act=Identity,
 ) -> tuple[torch.Tensor, Any, torch.Tensor]:
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss); ``shard_act(x, name)`` places the
+    residual stream (``"resid"``) after each sub-block.  A block of a
+    data-parallel model on a mesh (``sharding.data_parallel``: no cache,
+    no memory, no MoE routing) runs whole on each rank's local rows."""
     aux = x.new_zeros((), dtype=torch.float32)
+    if cache is None and memory is None and kind != "moe" \
+            and data_parallel(x, p):
+        x = local_block(lambda h, q: block_apply(
+            q, h, cfg, kind, attention=attention, scan=scan)[0], x, p)
+        return x, None, aux
     norm = lambda name, h: apply_norm(cfg.norm, p[name], h)
     if kind in ("dense", "self", "local_attn", "moe", "enc_self"):
         window = cfg.window if kind != "enc_self" else None
         h, new_cache = self_attention(
             p["attn"], norm("ln_attn", x), cfg, causal=kind != "enc_self",
-            window=window, cache=cache, attention=attention)
-        x = x + h
+            window=window, cache=cache, attention=attention,
+            shard_act=shard_act)
+        x = shard_act(x + h, "resid")
         if kind == "moe":
-            apply = moe_lib.moe_apply_row if cfg.moe_row_dispatch else \
-                moe_lib.moe_apply
-            h, aux = apply(p["moe"], norm("ln_moe", x), top_k=cfg.moe_top_k,
-                           act=cfg.mlp_act)
+            if cfg.moe_row_dispatch:
+                h, aux = moe_lib.moe_apply_row(
+                    p["moe"], norm("ln_moe", x), top_k=cfg.moe_top_k,
+                    act=cfg.mlp_act, shard_act=shard_act)
+            else:
+                h, aux = moe_lib.moe_apply(p["moe"], norm("ln_moe", x),
+                                           top_k=cfg.moe_top_k,
+                                           act=cfg.mlp_act)
         else:
             h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
-        return x + h, new_cache, aux
+        return shard_act(x + h, "resid"), new_cache, aux
     if kind == "mamba":
         h, new_cache = ssm_lib.mamba_apply(
             p["mamba"], norm("ln", x), d_state=cfg.ssm_state,
             dt_rank=cfg.dt_rank, cache=cache, chunk=cfg.ssm_chunk,
             fused=cfg.ssm_fused_coeffs, scan=scan)
-        return x + h, new_cache, aux
+        return shard_act(x + h, "resid"), new_cache, aux
     if kind == "rglru":
         h, new_cache = ssm_lib.rglru_apply(p["rglru"], norm("ln_rec", x),
                                            cache=cache)
-        x = x + h
+        x = shard_act(x + h, "resid")
         h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
-        return x + h, new_cache, aux
+        return shard_act(x + h, "resid"), new_cache, aux
     if kind == "cross":
         h, new_cache = cross_attention(p["xattn"], norm("ln_x", x), cfg,
                                        memory=memory, cache=cache)
-        x = x + torch.tanh(p["xgate"]).to(h.dtype) * h
+        x = shard_act(x + torch.tanh(p["xgate"]).to(h.dtype) * h, "resid")
         h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
-        return x + h, new_cache, aux
+        return shard_act(x + h, "resid"), new_cache, aux
     if kind == "dec_self_cross":
         self_cache = cache["self"] if cache is not None else None
         cross_cache = cache["cross"] if cache is not None else None
         h, new_self = self_attention(
             p["attn"], norm("ln_attn", x), cfg, causal=True, window=None,
-            cache=self_cache, attention=attention)
-        x = x + h
+            cache=self_cache, attention=attention, shard_act=shard_act)
+        x = shard_act(x + h, "resid")
         h, new_cross = cross_attention(p["xattn"], norm("ln_x", x), cfg,
                                        memory=memory, cache=cross_cache)
-        x = x + h
+        x = shard_act(x + h, "resid")
         h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
         new_cache = None
         if cache is not None:
             new_cache = {"self": new_self, "cross": new_cross}
-        return x + h, new_cache, aux
+        return shard_act(x + h, "resid"), new_cache, aux
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -430,6 +465,7 @@ def stack_apply(
     memory: torch.Tensor | None = None,
     attention=flash_prefill,
     scan=ssm_lib.kernel_scan,
+    shard_act=Identity,
 ):
     aux_tot = x.new_zeros((), dtype=torch.float32)
     new_caches = [] if caches is not None else None
@@ -438,7 +474,8 @@ def stack_apply(
         if remat:
             def layer(h, p=params["layers"][i], kind=kind):
                 h, _, a = block_apply(p, h, cfg, kind, memory=memory,
-                                      attention=attention, scan=scan)
+                                      attention=attention, scan=scan,
+                                      shard_act=shard_act)
                 return h, a
             x, aux = _checkpoint.checkpoint(layer, x, use_reentrant=False)
             aux_tot = aux_tot + aux
@@ -446,7 +483,7 @@ def stack_apply(
         c = caches[i] if caches is not None else None
         x, nc, aux = block_apply(params["layers"][i], x, cfg, kind, cache=c,
                                  memory=memory, attention=attention,
-                                 scan=scan)
+                                 scan=scan, shard_act=shard_act)
         aux_tot = aux_tot + aux
         if caches is not None:
             new_caches.append(nc)
@@ -480,12 +517,14 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def encode_memory(params, cfg: ArchConfig, frames: torch.Tensor,
-                  attention=flash_prefill) -> torch.Tensor:
+                  attention=flash_prefill,
+                  shard_act=Identity) -> torch.Tensor:
     """Audio encoder (stub frontend supplies ``frames`` [B, n_mem, D])."""
     enc = params["encoder"]
     x = (frames + enc["pos"][None]).to(COMPUTE_DTYPE)
     x, _, _ = stack_apply(enc["stack"], x, cfg, ("enc_self",),
-                          cfg.encoder_layers, attention=attention)
+                          cfg.encoder_layers, attention=attention,
+                          shard_act=shard_act)
     return apply_norm(cfg.norm, enc["ln_final"], x)
 
 
@@ -499,6 +538,7 @@ def lm_apply(
     pos_offset: int = 0,               # decode: absolute position of t=0
     attention=flash_prefill,
     scan=ssm_lib.kernel_scan,
+    shard_act=Identity,
 ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """Returns (logits [B, T, V] fp32, new_caches, aux_loss)."""
     t = tokens.shape[1]
@@ -511,22 +551,25 @@ def lm_apply(
         x = x * math.sqrt(cfg.d_model)
     if cfg.encoder_layers:
         x = x + params["dec_pos"][pos_offset:pos_offset + t][None]
-    x = x.to(COMPUTE_DTYPE)
+    x = shard_act(x.to(COMPUTE_DTYPE), "resid")
 
     x, new_caches, aux = stack_apply(
         params["stack"], x, cfg, cfg.pattern, cfg.n_layers, caches=caches,
-        memory=memory, attention=attention, scan=scan)
+        memory=memory, attention=attention, scan=scan, shard_act=shard_act)
 
     x = apply_norm(cfg.norm, params["ln_final"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("btd,dv->btv", x.to(COMPUTE_DTYPE),
                           head.to(COMPUTE_DTYPE))
-    return logits.float(), new_caches, aux
+    return shard_act(logits.float(), "logits"), new_caches, aux
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             z_loss: float = 1e-4) -> tuple[torch.Tensor, dict]:
-    """Next-token CE (labels already shifted; -1 = masked) + z-loss."""
+    """Next-token CE (labels already shifted; -1 = masked) + z-loss.  On
+    a mesh the vocab is gathered first: the gather of the label logits has
+    no DTensor rule over a sharded vocab."""
+    logits = unshard(logits, -1)
     mask = (labels >= 0).float()
     labels_safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)

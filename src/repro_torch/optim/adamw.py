@@ -13,6 +13,12 @@ reference stacks the layers of its scanned groups [G, ...], so their
 norms and biases have 2 dims there and are decayed).  The schedule, the
 norm and the clip scale stay on the parameters' device as 0-dim fp32
 tensors; only ``skip_nonfinite`` reads the norm on the host.
+
+DTensor parameters (a ``DeviceMesh`` cell) are updated on their local
+shards: the update is elementwise, so each rank's shard of the parameter,
+its gradient and its moments -- placed alike -- is updated as a plain
+tensor, with no DTensor dispatch.  Only the norm crosses ranks: a leaf's
+local sum of squares is added over the mesh dims that shard it.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 
 def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
@@ -46,10 +53,64 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _shard_dims(x) -> tuple[int, ...]:
+    """The mesh dims that shard a DTensor (none for a plain tensor)."""
+    if not _is_dtensor(x):
+        return ()
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"a gradient with pending sums {x.placements}: "
+                         f"place it as its parameter first")
+    return tuple(i for i, p in enumerate(x.placements) if p.is_shard())
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (an alias under no_grad), a plain tensor as
+    it is."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
+def leaf_sumsq(grads) -> list[torch.Tensor]:
+    """Each leaf's fp32 sum of squares; for a DTensor leaf its shards'
+    local sums added over the mesh dims that shard it (one all-reduce per
+    such set of dims for all the leaves that share it)."""
+    sums = [torch.sum(torch.square(_local(g).float())) for g in grads]
+    groups: dict = {}
+    for i, g in enumerate(grads):
+        dims = _shard_dims(g)
+        if dims:
+            groups.setdefault((g.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in groups.items():
+        vec = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(vec, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sums[i] = vec[j]
+    return sums
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of
     squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    return torch.sqrt(sum(leaf_sumsq(grads)))
+
+
+def _locals(p, *others) -> tuple:
+    """``p`` and the tensors updated with it as their local shards; a
+    DTensor ``p`` needs each of them placed as it is."""
+    if not _is_dtensor(p):
+        return (p, *others)
+    for x in others:
+        if not _is_dtensor(x) or tuple(x.placements) != tuple(p.placements):
+            raise ValueError(
+                f"a parameter placed {tuple(p.placements)} is updated with "
+                f"{tuple(x.placements) if _is_dtensor(x) else 'a plain tensor'}"
+                f": place its gradient and moments as the parameter")
+    return tuple(x.to_local() for x in (p, *others))
 
 
 class AdamW:
@@ -57,8 +118,10 @@ class AdamW:
         self.config = config
 
     def init(self, params) -> dict:
-        zeros = lambda: [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+        """Zero moments shaped (and, for DTensor parameters, placed) as
+        the parameters."""
+        zeros = lambda: [torch.zeros_like(p, dtype=torch.float32,
+                                          requires_grad=False)
                          for p in params.parameters()]
         return {"m": zeros(), "v": zeros(), "step": 0}
 
@@ -92,6 +155,7 @@ class AdamW:
         b2c = (1.0 - f32(c.b2) ** f32(step)).to(dev)
         for p, g, m, v, nd in zip(leaves, grads, state["m"], state["v"],
                                   ndims):
+            p, g, m, v = _locals(p, g, m, v)
             g = g.float() * scale
             # the reference's order: b1 m + ((1 - b1) g), b2 v + ((1 - b2) g) g
             m.mul_(c.b1).add_(g * (1 - c.b1))

@@ -16,6 +16,11 @@ their int16 bit pattern, the dtype in the manifest.  The manifest names
 the port (``"format": "repro_torch"``); a checkpoint the reference wrote
 (its leaves are keyed by its own pytree paths, in its own layout) is
 refused with a message that says so.
+
+DTensor leaves (a tree on a ``DeviceMesh``) are saved as their full
+values, gathered on every rank and written by rank 0; a restore places
+each full value by the placements of the tree it restores into, so a
+checkpoint moves between meshes of any shape and to and from one device.
 """
 from __future__ import annotations
 
@@ -25,7 +30,10 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.models import sharding as sh
 
 FORMAT = "repro_torch"
 _BITS = {torch.bfloat16: torch.int16}
@@ -71,9 +79,24 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree) -> str:
-        flat = _flatten(tree)
-        tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
+        # every rank gathers (a collective), rank 0 writes, all wait for it
+        flat = {k: v.full_tensor() if sh.is_dtensor(v) else v
+                for k, v in _flatten(tree).items()}
         final = os.path.join(self.dir, f"step_{step:09d}")
+        many = dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1
+        if many and dist.get_rank() != 0:
+            dist.barrier()
+            return final
+        try:
+            self._write(step, flat, final)
+        finally:
+            if many:
+                dist.barrier()
+        return final
+
+    def _write(self, step: int, flat: dict, final: str) -> None:
+        tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
@@ -90,7 +113,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._gc()
-        return final
 
     # ------------------------------------------------------------------ #
     def latest_step(self) -> int | None:
@@ -102,8 +124,9 @@ class CheckpointManager:
         ints): returns (tree, step), the tree of the same structure with
         every tensor of ``tree_like`` (a module's state included) loaded
         in place -- no second copy of the model is held -- and every int
-        replaced.  Nothing is loaded unless every leaf's key, shape and
-        dtype agree with the manifest."""
+        replaced; a DTensor leaf takes its own part of the full value, by
+        its placements.  Nothing is loaded unless every leaf's key, shape
+        and dtype agree with the manifest."""
         steps = self._steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -143,6 +166,10 @@ class CheckpointManager:
             t = torch.from_numpy(arr)
             if like.dtype in _BITS:
                 t = t.view(like.dtype)
+            if sh.is_dtensor(like):
+                mesh = like.device_mesh
+                t = sh.distribute_tensor_local(t.to(mesh.device_type), mesh,
+                                               tuple(like.placements))
             return like.copy_(t)
 
         def build(like, prefix):

@@ -1,6 +1,6 @@
 """Training loop: eager step through the hand-written kernels,
 checkpoint/restart, NaN guard, straggler telemetry -- the reference's
-``train/trainer.py`` in PyTorch, on one device.
+``train/trainer.py`` in PyTorch, on a mesh or one device.
 
 Fault-tolerance model (the reference's):
   * checkpoint every ``ckpt_every`` steps (and at the end) through the
@@ -12,8 +12,11 @@ Fault-tolerance model (the reference's):
     the in-place update) -- a single corrupt batch cannot poison the run;
   * straggler telemetry: per-step wall times keep an EWMA; steps slower
     than ``straggler_factor`` x EWMA are counted.
-The reference re-shards a restore onto its mesh; the port runs on the one
-device it is given.
+Given a ``DeviceMesh`` (``launch.mesh``), the parameters and AdamW state
+are DTensors placed by the sharding rules, the batches are sharded over
+the data axes, the step is ``build_cell``'s, and a restore is placed by
+the rules on whatever mesh the relaunch has.  Given a device (``"cuda"``,
+``"cpu"``), it trains there without DTensors, as before there was a mesh.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import (DataConfig, SyntheticLMStream,
                                        make_batch_iterator)
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import is_mesh
+from repro_torch.launch.steps import make_train_step, on_mesh
+from repro_torch.models import sharding as sh
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.train.checkpoint import CheckpointManager
@@ -52,30 +57,42 @@ def _nan_guarded(step_fn):
     leaves params and optimizer state untouched; ``metrics["skipped"]``
     says so."""
     def guarded(params, opt_state, batch):
-        return step_fn(params, opt_state, batch, skip_nonfinite=True)
+        params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                             skip_nonfinite=True)
+        return params, opt_state, sh.gather(metrics)
     return guarded
 
 
 class Trainer:
-    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, device="cuda",
+    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, mesh="cuda",
                  stream=None):
+        """A trainer on ``mesh``: a ``DeviceMesh``, or a device (the card
+        unless the caller asks for the CPU)."""
         self.cfg, self.tcfg = cfg, tcfg
-        self.device = torch.device(device)
-        self.model = build_model(cfg)
+        self.mesh = mesh if is_mesh(mesh) else None
+        self.device = torch.device(mesh.device_type if self.mesh else mesh)
+        self.model = build_model(cfg, shard_act=sh.make_shard_act(self.mesh))
         self.optimizer = AdamW(tcfg.optimizer)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
         self.stream = stream or SyntheticLMStream(DataConfig(
             seq_len=tcfg.seq_len, global_batch=tcfg.global_batch,
             vocab=cfg.vocab, seed=tcfg.seed,
             memory_tokens=cfg.n_memory, d_model=cfg.d_model))
-        self.step_fn = _nan_guarded(make_train_step(self.model,
-                                                    self.optimizer))
+        self.step_fn = _nan_guarded(on_mesh(
+            make_train_step(self.model, self.optimizer), self.mesh))
         self.history: list[dict] = []
         self.straggler_steps = 0
 
     # ------------------------------------------------------------------ #
+    def _place(self, params):
+        if self.mesh is None:
+            return params
+        return sh.distribute(params, sh.param_shardings(
+            self.cfg, params, self.mesh), self.mesh)
+
     def init_state(self):
-        params = self.model.init(self.tcfg.seed, self.device, trainable=True)
+        params = self._place(self.model.init(self.tcfg.seed, self.device,
+                                             trainable=True))
         return params, self.optimizer.init(params), 0
 
     def restore_or_init(self):
@@ -88,7 +105,8 @@ class Trainer:
     def train(self, log: Callable[[str], None] = print):
         tc = self.tcfg
         params, opt, start = self.restore_or_init()
-        it = make_batch_iterator(self.stream, self.device, start_step=start)
+        it = make_batch_iterator(self.stream, self.mesh or self.device,
+                                 start_step=start)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else \
             (lambda: None)
         ewma = None

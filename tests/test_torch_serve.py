@@ -140,7 +140,7 @@ def test_own_init_is_seeded():
 
 def test_engine_defaults_to_the_card():
     import inspect
-    assert inspect.signature(ServeEngine).parameters["device"].default == \
+    assert inspect.signature(ServeEngine).parameters["mesh"].default == \
         "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):

@@ -136,3 +136,32 @@ def test_other_head_widths_are_refused_on_the_card(card):
         q = torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16, device=card)
         with pytest.raises(ValueError, match=f"head width {dh} is not"):
             layers.flash_prefill(q, q, q, causal=True, window=None)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "falcon-mamba-7b"])
+def test_mesh_engine_on_a_mesh_of_one(card, arch):
+    """``ServeEngine(cfg, make_debug_mesh(1, 1))`` (NCCL, one rank) on the
+    device engine's weights: the same greedy tokens, prefill logits equal
+    within the phase 14 bar (bit-equal is expected), and the kernels'
+    launches of the unsharded path (under ``local_map``)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg, kernel = _cfg(arch), MODELS[arch]
+    plain = ServeEngine(cfg, card)
+    meshed = ServeEngine(cfg, make_debug_mesh(1, 1), params=plain.params)
+    prompt = np.random.default_rng(6).integers(1, cfg.vocab, (2, 64))
+    got = []
+    for eng in (plain, meshed):
+        chip_smoke.reset_launches(ops)
+        logits, _ = eng._prefill(eng.params, {"tokens": eng._tokens(prompt)})
+        got.append((logits.full_tensor() if hasattr(logits, "full_tensor")
+                    else logits, _launches()))
+    (want, n0), (have, n1) = got
+    assert n1 == n0 and n0[kernel] == cfg.n_layers, (n0, n1)
+    gap = chip_smoke.logit_gap(have, want)
+    assert gap["rel"] <= chip_smoke.SERVE_REL_TOL, gap
+    assert gap["top1"] >= chip_smoke.SERVE_TOP1, gap
+    gen = GenerationConfig(max_new_tokens=4)
+    prompts = [list(r) for r in prompt]
+    np.testing.assert_array_equal(meshed.generate(prompts, gen)["tokens"],
+                                  plain.generate(prompts, gen)["tokens"])

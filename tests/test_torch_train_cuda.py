@@ -210,3 +210,58 @@ def test_selective_scan_function_on_the_card(card):
     assert ops.selective_scan_bwd.launches == before + 1
     want = ops.selective_scan_bwd(*args)
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
+
+
+#: the sharded training cell on a mesh of one rank against the unsharded
+#: step: the same ops on the same data, so within fp32 rounding of equal
+#: (bit-equal is expected)
+MESH_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "falcon-mamba-7b"])
+def test_sharded_train_cell_on_a_mesh_of_one(card, arch):
+    """``build_cell`` on ``make_debug_mesh(1, 1)`` (NCCL, one rank) for two
+    steps against ``make_train_step`` without a mesh: losses, every
+    updated leaf, and the kernels' launches (under ``local_map`` the
+    kernels see plain local tensors, as many times as unsharded)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    cfg = get_arch(arch).reduced()
+    if arch == "yi-6b":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(3)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                                   dtype=torch.int32, device=card)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    cell, _ = build_cell(cfg, ShapeSpec("train", 128, 2, "train"),
+                         make_debug_mesh(1, 1), optimizer=AdamW(opt_cfg))
+    runs = []
+    for model, step in ((build_model(cfg), None), (cell.model, cell)):
+        step = step or make_train_step(model, AdamW(opt_cfg))
+        params = model.init(0, card, trainable=True)
+        opt = AdamW(opt_cfg).init(params)
+        for w in (*ops.KERNEL_WRAPPERS.values(),
+                  *ops.BACKWARD_WRAPPERS.values()):
+            w.launches = 0
+        losses = []
+        for batch in batches:
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+        launches = {k: w.launches for k, w in {
+            **ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}.items()}
+        runs.append((losses, launches, {
+            n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach()
+            for n, p in params.named_parameters()}))
+    (l0, n0, p0), (l1, n1, p1) = runs
+    assert n1 == n0 and any(n0.values()), (n0, n1)
+    assert all(abs(a - b) <= MESH_RTOL * abs(b) for a, b in zip(l1, l0))
+    for name, b in p0.items():
+        a = p1[name]
+        assert float((a - b).norm()) <= MESH_RTOL * float(b.norm()), name
