@@ -24,10 +24,11 @@ of which fails the run when it fails:
 7. build    -- the ``cim_matmul``, ``flash_attention`` and
    ``selective_scan`` libraries (their nvcc runs start in phase 2, beside
    the strategy_eval build); print each library's compiler summary, the
-   registers and spills of every bf16 tensor-core instantiation, and the
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS
-   (``cuobjdump -sass``); fails if a bf16 instantiation of ``cim_matmul``
-   or ``flash_attention`` has no ``HGMMA``;
+   registers and spills of every tensor-core instantiation (bf16, and
+   fp32 in 3xTF32), and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions in its SASS (``cuobjdump -sass``); fails if an
+   instantiation of either route of ``cim_matmul`` or ``flash_attention``
+   has no ``HGMMA`` or one is missing;
 8. kernels  -- each against its plain version on the card, at the shapes
    of tests/test_kernels.py, at every bf16 tile set of the tensor-core
    routes (matmul on a ragged shape that needs TMA padding, AF and PF;
@@ -43,7 +44,10 @@ of which fails the run when it fails:
    call computes the same function, that call (timed as a yardstick
    only), each also replayed from a CUDA graph (device time without
    per-call host dispatch); AF's
-   bf16 error <= PF's;
+   bf16 error <= PF's; then the fp32 (3xTF32) routes at every tile set on
+   the bf16 sweep's ragged shapes (matmul 257x300x250 AF and PF; attention
+   2x200x333 and 2x333x200 at every width, causal or not), each checked
+   and timed the same way, fp32 bounds also at the CUDA cores' rate;
 9. calibrate -- ``python -m repro_torch.service calibrate --json -o
    build/repro_torch/calibration.json`` in a subprocess, then the same
    path in-process (``run_microbench`` -> ``fit_report`` +
@@ -228,9 +232,12 @@ PAPER_GAINS = {"ee": 1.58, "th": 2.11}       # paper Fig. 7 geomeans
 #: fp64 outside the tensor cores (an FMA counts as two operations), HBM
 FP_PEAK = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_PER_S = 3.35e12
-#: the peak for a matrix product's operations in each input type: bf16 on
-#: the tensor cores, fp32 outside them (the port keeps fp32 out of TF32)
-PRODUCT_PEAK = {"float32": 67e12, "bfloat16": 989e12}
+#: the peak for a matrix product's operations in each input type, on the
+#: tensor cores: bf16 at 989 TFLOP/s; fp32 in 3xTF32, each fp32 product
+#: three TF32 products at 495 TFLOP/s (495e12 / 3).  The fp32 routes ran on
+#: the CUDA cores before (67 TFLOP/s, FP_PEAK): measure_case prints the
+#: share against that rate too, so no share can read above 1
+PRODUCT_PEAK = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/strategy_eval.cu"
 REPLACES = "src/repro/kernels/strategy_eval.py:58"
@@ -255,13 +262,25 @@ DESIGNS = {
                    "per-(candidate, operator, REV) terms computed once; "
                    "IEEE, -fmad=false"},
     "cim_matmul": {
-        "float32": "CUDA cores, true fp32: smem-staged tiles, register tiles",
+        "float32": "tensor cores, 3xTF32: wgmma m64n64k8 .tf32 lo*hi + hi*lo "
+                   "+ hi*hi; a producer warpgroup loads each 32-wide K stage, "
+                   "splits it into tf32 hi + lo and stores it K-major (B "
+                   "transposed) into a 4-6 stage mbarrier ring; TM/64 "
+                   "consumer warpgroups, each stage's hi*hi sum added on "
+                   "the CUDA cores; TM x 64 blocks (64 x 64 where TM rows "
+                   "leave the card idle); PF adds each K block's sum into "
+                   "the output",
         "bfloat16": "tensor cores: wgmma m64nBNk16 from a TMA ring "
                     "(mbarriers), producer warpgroup + BM/64 consumer "
                     "warpgroups; PF epilogue staged in shared memory"},
     "flash_attention": {
-        "float32": "CUDA cores, true fp32: smem-staged q/k/v, warp-per-row "
-                   "softmax",
+        "float32": "tensor cores, 3xTF32: wgmma .tf32 QK^T (Q, K hi + lo "
+                   "in smem) and PV (P hi + lo from registers, V^T hi + lo "
+                   "in smem); a producer warpgroup loads, splits and "
+                   "stores q once and K, V (V transposed) per key step "
+                   "into mbarrier rings; one consumer warpgroup of 64 "
+                   "query rows, softmax in registers; 64-key steps at "
+                   "widths 64 and 128, 32 at 256",
         "bfloat16": "tensor cores: wgmma QK^T (smem) and PV (P hi+lo from "
                     "registers), 2-stage TMA ring, softmax in registers, "
                     "QK of one key step overlapping PV of the last; head "
@@ -275,10 +294,15 @@ DESIGNS = {
                     "channel), y by shuffle tree; dt/xi/B/C chunks "
                     "double-buffered in shared memory by cp.async"},
 }
-#: the bf16 tensor-core instantiations each library must hold (phase 7)
-#: (mangled: the tc:: kernels take no element type, the fp32 ones an ``f``)
-TC_KERNELS = {"cim_matmul": ("af_kernelILi", "pf_kernelILi"),
-              "flash_attention": ("flash_kernelILi",)}
+#: the tensor-core instantiations each library must hold (phase 7), by
+#: route: bf16 (namespace tc, fed by TMA) and fp32 (namespace tf, 3xTF32,
+#: loaded by its producer threads): pieces of their mangled names, and
+#: how many there are
+TC_KERNELS = {
+    "cim_matmul": {"bf16": (("2tc9af_kernelILi", "2tc9pf_kernelILi"), 16),
+                   "fp32": (("2tf9mm_kernelILi",), 2)},
+    "flash_attention": {"bf16": (("2tc12flash_kernelILi",), 9),
+                        "fp32": (("2tf12flash_kernelILi",), 3)}}
 CALIBRATION_ARTIFACT = "build/repro_torch/calibration.json"
 #: the falcon-mamba-7b scan at full width (B, T, I, S) and its tiling
 FALCON_SCAN = (1, 2048, 8192, 16)
@@ -531,18 +555,19 @@ MANGLED_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
 
 
 def short_name(mangled: str) -> str:
-    """``tc::af_kernel<128, 64, 128>``, ``af_kernel<float, 128, 64, 128>``
-    or ``strategy_eval_kernel<double, 2>`` from a kernel's mangled name
-    (the ``tc::`` kernels, the bf16 tensor-core routes, take no element
-    type)."""
+    """``tc::af_kernel<128, 64, 128>``, ``tf::mm_kernel<128>`` or
+    ``strategy_eval_kernel<double, 2>`` from a kernel's mangled name (the
+    tensor-core kernels take no element type: ``tc::`` are the bf16
+    routes, ``tf::`` the fp32 ones)."""
     m = re.search(r"([a-z_]+_kernel)I(f|d|13__nv_bfloat16)?((?:Li\d+E)*)E",
                   mangled)
     if not m or not (m.group(2) or m.group(3)):
         return mangled
     args = re.findall(r"Li(\d+)E", m.group(3))
     typed = [MANGLED_TYPES[m.group(2)]] if m.group(2) else []
-    return ("" if typed else "tc::") + m.group(1) + "<" + \
-        ", ".join(typed + args) + ">"
+    fp32 = f"2tf{len(m.group(1))}{m.group(1)}" in mangled
+    return ("" if typed else "tf::" if fp32 else "tc::") + m.group(1) + \
+        "<" + ", ".join(typed + args) + ">"
 
 
 #: SASS instructions counted per kernel function: wgmma, TMA loads, and
@@ -623,7 +648,9 @@ def job_rows(job):
 #: kernel-vs-plain tolerances on the card, |kernel - plain| <= atol + rtol
 #: |plain|, by (kernel, dtype[, schedule]):
 #: - fp32 matmul: sums of up to 1024 products of N(0, 1) values (partial
-#:   sums up to ~100) run in another order than cuBLAS's, a few 1e-5 apart;
+#:   sums up to ~100) run in another order than cuBLAS's, each product in
+#:   3xTF32 (about 2^-20 relative) and each 32-wide stage's sum added on
+#:   the CUDA cores: up to about 1.6e-4 apart at the bert-large FFN;
 #: - bf16 AF matmul, attention and scan: both versions compute in fp32 from
 #:   the same bf16 inputs and round the output once, so an fp32 difference
 #:   in the last bits moves the output by at most one bf16 step, 2^-7
@@ -707,22 +734,24 @@ def library_of(torch, kernel: str, args: tuple, kwargs: dict):
     return None
 
 
-def kernel_bound_ms(kernel: str, args: tuple, kwargs: dict) -> tuple:
+def kernel_bound_ms(kernel: str, args: tuple, kwargs: dict,
+                    peak: dict = PRODUCT_PEAK) -> tuple:
     """Least time on an H100 for one call: the larger of its bytes (each
     input read once, each output written once) over HBM and its
-    operations over the peak for their type -- products of bf16 inputs on
-    the tensor cores, everything else at the fp32 rate."""
+    operations over the peak for their type -- products at ``peak``
+    (PRODUCT_PEAK: on the tensor cores), everything else at the fp32
+    rate."""
     from repro_torch.obs import profile
     flops, nbytes = profile.work_counts(kernel, args, kwargs)
     dt = dtype_of(args[0])
     if kernel == "cim_matmul":
-        t_ops = flops / PRODUCT_PEAK[dt]
+        t_ops = flops / peak[dt]
     elif kernel == "flash_attention":
         q, k = args[:2]
         pairs = profile.attention_pairs(q.shape[0], q.shape[1], k.shape[1],
                                         kwargs.get("causal", True))
         products = pairs * 4 * q.shape[2]
-        t_ops = products / PRODUCT_PEAK[dt] + \
+        t_ops = products / peak[dt] + \
             (flops - products) / FP_PEAK["float32"]
     else:
         t_ops = flops / FP_PEAK["float32"]
@@ -793,6 +822,9 @@ def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
     g_ms = graph_ms(torch, lambda: fn(*args, **kwargs))
     lib_g_ms = graph_ms(torch, lib) if lib is not None else None
     b_ms, b_by = kernel_bound_ms(kernel, args, kwargs)
+    # fp32 products: the bound at the CUDA cores' rate as well
+    b67 = kernel_bound_ms(kernel, args, kwargs, FP_PEAK)[0] \
+        if kernel in TC_KERNELS and dtype_of(args[0]) == "float32" else None
     geo = {}
     if kernel == "selective_scan":
         from repro_torch.kernels import selective_scan as ss_k
@@ -803,13 +835,16 @@ def measure_case(torch, ref, kernel, fn, args, kwargs, label, card) -> dict:
           f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of bound; graph-replayed "
           f"kernel {fmt(g_ms)}, library {fmt(lib_g_ms)}"
           + (f", {b_ms / g_ms:.3f} of bound" if g_ms else "")
+          + (f"; bound at the CUDA cores' fp32 rate {b67:.4f} ms, "
+             f"{b67 / (g_ms or ms):.3f} of it" if b67 else "")
           + f"; max |kernel - plain| {err:.3e} (atol {atol}, rtol {rtol})"
           + (f"; launch {geo['blocks']} blocks x {geo['threads']} threads, "
              f"{geo['warps_per_sm']:.2f} warps per SM" if geo else "")
           + f"; {card}", flush=True)
     return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                graph_ms=g_ms, library_graph_ms=lib_g_ms, **geo)
+                graph_ms=g_ms, library_graph_ms=lib_g_ms,
+                **({"bound_cuda_cores_ms": b67} if b67 else {}), **geo)
 
 
 def falcon_scan_args(rng, on_card, dtype, dev) -> tuple:
@@ -3218,7 +3253,8 @@ def main() -> None:
     print(card)
     clock = PhaseClock(card)
 
-    # the port keeps fp32 products in true fp32; so do the plain versions
+    # the plain versions and the library calls compute fp32 products in
+    # true fp32, not in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3514,31 +3550,32 @@ def main() -> None:
               f"{ptxas_summary(report)}; full report in "
               f"{lib.name}.ptxas.txt")
         for kname, regs, st, ld in ptxas_table(report):
-            if kname.startswith("tc::"):
+            if kname.startswith(("tc::", "tf::")):
                 print(f"[build]   {kname}: {regs} registers, {st} bytes of "
                       f"spill stores, {ld} of spill loads")
         counts = sass_counts(build, lib)
-        tc = {k: (v["HGMMA"], v["UTMALDG"]) for k, v in counts.items()
-              if any(t in k for t in TC_KERNELS.get(name, ()))}
         total = lambda op: sum(v[op] for v in counts.values())
         print(f"[sass] {lib.name}: HGMMA {total('HGMMA')}, UTMALDG "
               f"{total('UTMALDG')}, MUFU.RCP {total('MUFU.RCP')} over "
-              f"{len(counts)} kernels; bf16 tensor-core instantiations "
-              f"{len(tc)}, each HGMMA/UTMALDG: "
-              + ", ".join(f"{short_name(k)} {h}/{u}"
-                          for k, (h, u) in sorted(tc.items())))
-        if not tc:
+              f"{len(counts)} kernels")
+        if name not in TC_KERNELS:
             print(f"[sass] {lib.name}: MUFU.RCP per kernel: " + ", ".join(
                 f"{short_name(k)} {v['MUFU.RCP']}"
                 for k, v in sorted(counts.items())))
-        want = {"cim_matmul": 16, "flash_attention": 9}.get(name, 0)
-        if len(tc) != want:
-            fail(f"{name}: {len(tc)} bf16 tensor-core kernels in the SASS, "
-                 f"expected {want}")
-        if any(h == 0 for h, _ in tc.values()):
-            fail(f"{name}: a bf16 instantiation has no HGMMA: "
-                 + ", ".join(short_name(k) for k, (h, _) in tc.items()
-                             if h == 0))
+        for route, (names, want) in TC_KERNELS.get(name, {}).items():
+            tc = {k: (v["HGMMA"], v["UTMALDG"]) for k, v in counts.items()
+                  if any(t in k for t in names)}
+            print(f"[sass] {lib.name}: {route} tensor-core instantiations "
+                  f"{len(tc)}, each HGMMA/UTMALDG: "
+                  + ", ".join(f"{short_name(k)} {h}/{u}"
+                              for k, (h, u) in sorted(tc.items())))
+            if len(tc) != want:
+                fail(f"{name}: {len(tc)} {route} tensor-core kernels in the "
+                     f"SASS, expected {want}")
+            if any(h == 0 for h, _ in tc.values()):
+                fail(f"{name}: a {route} instantiation has no HGMMA: "
+                     + ", ".join(short_name(k) for k, (h, _) in tc.items()
+                                 if h == 0))
     pool.shutdown()
 
     clock.done("7 build")
@@ -3688,6 +3725,30 @@ def main() -> None:
         del args
     del full
     torch.cuda.empty_cache()
+    # the fp32 (3xTF32) routes at every tile set, on the ragged shapes of
+    # the bf16 sweep above, each checked and timed
+    a = on_card(rng.standard_normal((257, 300)))
+    b = on_card(rng.standard_normal((300, 250)))
+    for tiling in ("AF", "PF"):
+        for bm in cm_k.TILES:
+            for bn in cm_k.TILES:
+                for bk in cm_k.TILES:
+                    kw = {"tiling": tiling, "bm": bm, "bn": bn, "bk": bk}
+                    new_cases["cim_matmul"].append(measure_case(
+                        torch, ref, "cim_matmul", ops.cim_matmul, (a, b), kw,
+                        f"{tiling} bm{bm}xbn{bn}xbk{bk} 257x300x250 float32",
+                        card))
+    for d in (*fa_k.HEAD_DIMS, 120, 16):
+        for t, s_len in ((200, 333), (333, 200)):
+            qkv = tuple(on_card(rng.standard_normal((2, ln, d)))
+                        for ln in (t, s_len, s_len))
+            for causal in (False, True):
+                for bq, bk in fa_k.WIDTH_TILES[fa_k.compiled_width(d)]:
+                    kw = {"causal": causal, "bq": bq, "bk": bk}
+                    new_cases["flash_attention"].append(measure_case(
+                        torch, ref, "flash_attention", ops.flash_attention,
+                        qkv, kw, f"bq{bq}xbk{bk} 2x{t}x{s_len}x{d} "
+                        f"causal={causal} float32", card))
 
     clock.done("8 kernels")
 

@@ -2,11 +2,13 @@
 
 The kernel (``csrc/cim_matmul.cu``) is the paper's AF / PF macro tiling as
 a blocked ``[M, K] @ [K, N]``: AF keeps each output tile's sum in fp32
-registers across K and writes it once; PF keeps an A tile in shared memory
-while it sweeps N tiles and read-modify-writes the output at its dtype
-once per K block.  bfloat16 runs on the tensor cores (``wgmma``, tiles
-brought by TMA), float32 on the CUDA cores.  It replaces the Pallas TPU
-kernel of the reference (``repro/kernels/cim_matmul.py``).  Built and
+registers across K and writes it once; PF read-modify-writes the output at
+its dtype once per K block (on the bf16 route keeping an A tile in shared
+memory while it sweeps N tiles).  Both dtypes run on the tensor cores (``wgmma``):
+bfloat16 on tiles brought by TMA, float32 in 3xTF32 (each operand split
+into tf32 hi + lo parts by the kernel's producer threads, three products
+summed in fp32).  It replaces the Pallas TPU kernel of the reference
+(``repro/kernels/cim_matmul.py``).  Built and
 loaded by ``build.py`` at first use; nothing here runs when the module is
 imported.
 """
@@ -65,9 +67,23 @@ def pf_tiles_per_block(m: int, n: int, bm: int, bn: int,
     return -(-gn // splits)
 
 
+def fp32_tiles(m: int, n: int, bm: int,
+               device: torch.device) -> tuple[int, int]:
+    """The block tile the float32 route runs a bm x bn tiling with.  For
+    an fp32 output no element's arithmetic depends on the block that
+    computes it, so the route runs bm x 64 blocks (the width its three
+    accumulators fit), and 64 x 64 where bm x 64 would leave more than
+    half of the card's SMs without a block (bk, which sets PF's K blocks,
+    is kept).  bf16 runs the caller's tiles as they are."""
+    if bm > 64 and -(-m // bm) * -(-n // 64) * 2 <= _sm_count(device):
+        bm = 64
+    return bm, 64
+
+
 def tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """``a`` [M, K] and ``b`` [K, N] as TMA can read them: row strides of a
-    multiple of 16 bytes and 16-byte-aligned bases.  Returns the operands
+    """``a`` [M, K] and ``b`` [K, N] as TMA (bf16) and the fp32 route's
+    16-byte loads of A can read them: row strides of a multiple of 16 bytes
+    and 16-byte-aligned bases.  Returns the operands
     themselves where they already are, else zero-padded copies whose K and
     N are rounded up to a multiple of ``16 // itemsize``.  The added zeros
     add exact zeros to every sum and move no K block boundary (blocks start
@@ -109,9 +125,10 @@ def launch(a: torch.Tensor, b: torch.Tensor, *, tiling: str = "AF",
         return torch.zeros((m, n), dtype=a.dtype, device=a.device)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     tpb = pf_tiles_per_block(m, n, bm, bn, a.device) if tiling == "PF" else 1
-    if a.dtype == torch.bfloat16:
-        a, b = tma_operands(a, b)
-        k = a.shape[1]
+    if a.dtype == torch.float32:
+        bm, bn = fp32_tiles(m, n, bm, a.device)
+    a, b = tma_operands(a, b)
+    k = a.shape[1]
     lib = _library()
     with torch.cuda.device(a.device):
         err = lib.cim_matmul(DTYPES[a.dtype], SCHEDULES[tiling], bm, bn, bk,

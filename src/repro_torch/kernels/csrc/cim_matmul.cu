@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/cim_matmul.py
 // (cim_matmul -> _kernel_af / _kernel_pf): [M, K] @ [K, N] in BM x BN x BK
 // blocks, out in a's dtype (float32 or bfloat16).  The two schedules are
-// the paper's two loop orders and stay two kernels here:
+// the paper's two loop orders and stay two kernels on the bf16 route (the
+// fp32 route runs both in one kernel, below):
 //
 //   AF  a block owns one BM x BN output tile, loops over K with the sum in
 //       fp32 registers and writes the tile once (the psum register).
@@ -41,14 +42,42 @@
 //   8 only where they are not, and rows past an edge load as zeros.  Its
 //   ceiling is the 989 TFLOP/s bf16 tensor-core rate.
 //
-// float32: the first version's design (the port keeps fp32 out of TF32, and
-//   TF32 wgmma takes only K-major operands).  It computes on the CUDA cores
-//   in true fp32, so its ceiling is the 67 TFLOP/s fp32 rate: 256 threads
-//   per block, each holding a (BM/16) x (BN/16) register tile of the sum; A
-//   and B tiles staged in dynamic shared memory (A transposed with one
-//   column of padding, so both the transposing store and the broadcast
-//   reads are free of bank conflicts); every global load coalesced along a
-//   row.
+// float32: the tensor cores in 3xTF32 (wgmma m64n64k8 .tf32).  Each fp32
+//   operand is split into tf32 hi + lo parts and each product is lo_a hi_b
+//   + hi_a lo_b + hi_a hi_b, small terms first: about 2^-21 relative per
+//   product (hopper.cuh, split_tf32), where one tf32 product would be off
+//   by 2^-11, beyond the fp32 tolerance.  tf32 wgmma reads both operands
+//   K-major only, and B [K, N] is MN-major, so the parts cannot land by
+//   TMA: a block is TM / 64 consumer warpgroups and one producer warpgroup
+//   whose 128 threads load each 32-wide K stage of A and B from global
+//   memory (A a 16-byte chunk a thread, B four values down a column,
+//   neighbouring threads on neighbouring columns), split them in registers
+//   and store the hi and lo parts K-major and 128-byte swizzled into a
+//   ring of stages guarded by mbarriers (full: all 128 producer threads
+//   have stored and fenced; empty: every consumer warp's products of the
+//   stage are done).  B is transposed by that store, so the split costs no
+//   pass of its own over shared memory, and the loads and splits of later
+//   stages overlap the products.  The tensor cores add into their fp32
+//   accumulator with truncation, an error of up to an ulp of the running
+//   sum per product, which over K = 700 already breaks the fp32 tolerance;
+//   so each stage's hi_a hi_b sum lands in a fresh accumulator and is added
+//   on the CUDA cores (rounded to nearest) into the tile's sum, and the
+//   small terms, 2^-10 of it, keep one accumulator (Consumer).  Three
+//   accumulators of TN / 2 registers and a second stage accumulator fit a
+//   consumer thread at TN = 64: blocks are TM x 64.  AF keeps the sum
+//   across K and writes it once.  PF starts a fresh sum for each bk-wide K
+//   block (bk / 32 stages; blocks at multiples of bk from 0, as
+//   _kernel_pf) and adds it into the fp32 output in K order, a
+//   read-modify-write of float2 pairs (whole 32-byte sectors) by the
+//   thread that owns them; fp32 + fp32 in a register or in memory rounds
+//   alike, so each output element sees _kernel_pf's additions.  For an
+//   fp32 output no element's arithmetic depends on which block computes
+//   it, so a block may be a split of the caller's bm x bn tile: the
+//   wrapper runs bm x 64 blocks, or 64 x 64 where bm rows would leave most
+//   of the card idle (cim_matmul.fp32_tiles), and every PF block owns one
+//   output tile (tiles_per_block is not used).  The wrapper pads K and N to
+//   multiples of 4 (16-byte A rows), as for TMA.  Ceiling: 495 TFLOP/s
+//   TF32 over three products, 165 TFLOP/s of fp32 products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,183 +85,280 @@
 
 namespace {
 
-constexpr int THREADS = 256;   // 16 x 16 threads, each a register tile
+// ---- float32: 3xTF32 wgmma -------------------------------------------------
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+namespace tf {
 
-// A[m0:m0+BM, k0:k0+BK] -> As[BK][BM+1] (transposed, zero outside A)
-template <typename T, int BM, int BK>
-__device__ __forceinline__ void load_a(float* As, const T* a, int M, int K,
-                                       int m0, int k0) {
-  for (int idx = threadIdx.x; idx < BM * BK; idx += THREADS) {
-    const int r = idx / BK, c = idx % BK;
-    const int gr = m0 + r, gc = k0 + c;
-    As[c * (BM + 1) + r] =
-        (gr < M && gc < K) ? to_f(a[static_cast<size_t>(gr) * K + gc]) : 0.f;
+constexpr int WG = 128;                      // threads of a warpgroup
+constexpr int BKS = 32;                      // K of a stage: one 128-byte row
+
+constexpr int TN = 64;                       // columns of a block tile
+
+template <int TM>
+struct Tile {
+  static constexpr int NC = TM / 64;         // consumer warpgroups
+  static constexpr int THREADS = (NC + 1) * WG;  // + the producer warpgroup
+  static constexpr int A_PART = TM * 128;    // A hi (or lo): [TM rows x 32 K]
+  static constexpr int B_PART = TN * 128;    // B^T hi (or lo): [TN rows x 32 K]
+  static constexpr int STAGE_BYTES = 2 * (A_PART + B_PART);
+  static constexpr int STAGES = 196608 / STAGE_BYTES;   // 4 or 6
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+};
+
+// One K stage of A (rows m0.., a 16-byte chunk a task) and of B (columns
+// n0.., four rows of K down one column a task) from global memory, split
+// into hi and lo parts and stored K-major into the stage's tiles
+// [A hi | A lo | B^T hi | B^T lo].  Values past M, N or K store as zeros.
+template <int TM>
+__device__ __forceinline__ void produce(uint8_t* st, const float* __restrict__ a,
+                                        const float* __restrict__ b, int M,
+                                        int N, int K, int lda, int ldb, int m0,
+                                        int n0, int k0, int t) {
+  using T = Tile<TM>;
+  constexpr int AT = TM * 8 / WG, BT = TN * 8 / WG;
+  float4 av[AT];
+#pragma unroll
+  for (int u = 0; u < AT; ++u) {
+    const int idx = t + u * WG, r = idx / 8, c = idx % 8;
+    const int row = m0 + r, col = k0 + 4 * c;      // K % 4 == 0: a whole chunk
+    av[u] = row < M && col < K
+                ? *reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * lda + col)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// B[k0:k0+BK, n0:n0+BN] -> Bs[BK][BN] (zero outside B)
-template <typename T, int BN, int BK>
-__device__ __forceinline__ void load_b(float* Bs, const T* b, int K, int N,
-                                       int k0, int n0) {
-  for (int idx = threadIdx.x; idx < BK * BN; idx += THREADS) {
-    const int r = idx / BN, c = idx % BN;
-    const int gr = k0 + r, gc = n0 + c;
-    Bs[idx] = (gr < K && gc < N) ? to_f(b[static_cast<size_t>(gr) * N + gc]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum over the staged BK of As[kk][row_i] * Bs[kk][col_j],
-// row_i = ty + 16 i, col_j = tx + 16 j, k in order
-template <int BM, int BN, int BK>
-__device__ __forceinline__ void mma_tile(float (&acc)[BM / 16][BN / 16],
-                                         const float* As, const float* Bs,
-                                         int ty, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < BK; ++kk) {
-    float av[BM / 16], bv[BN / 16];
+  float bv[BT][4];
 #pragma unroll
-    for (int i = 0; i < BM / 16; ++i) av[i] = As[kk * (BM + 1) + ty + 16 * i];
+  for (int u = 0; u < BT; ++u) {
+    const int idx = t + u * WG, n = idx % TN, c = idx / TN;
+    const int col = n0 + n;
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) bv[j] = Bs[kk * BN + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <typename T, int BM, int BN, int BK>
-__global__ void __launch_bounds__(THREADS)
-af_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-          int M, int N, int K) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + BK * (BM + 1);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[BM / 16][BN / 16];
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    load_a<T, BM, BK>(As, a, M, K, m0, k0);
-    load_b<T, BN, BK>(Bs, b, K, N, k0, n0);
-    __syncthreads();
-    mma_tile<BM, BN, BK>(acc, As, Bs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) c[static_cast<size_t>(r) * N + col] = from_f<T>(acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const int krow = k0 + 4 * c + i;
+      bv[u][i] = col < N && krow < K ? b[static_cast<size_t>(krow) * ldb + col] : 0.f;
     }
   }
+#pragma unroll
+  for (int u = 0; u < AT; ++u) {
+    const int idx = t + u * WG;
+    hopper::store_split4(st, st + T::A_PART, hopper::sw128_offset(idx / 8, idx % 8),
+                         av[u].x, av[u].y, av[u].z, av[u].w);
+  }
+  uint8_t* bt = st + 2 * T::A_PART;
+#pragma unroll
+  for (int u = 0; u < BT; ++u) {
+    const int idx = t + u * WG;
+    hopper::store_split4(bt, bt + T::B_PART, hopper::sw128_offset(idx % TN, idx / TN),
+                         bv[u][0], bv[u][1], bv[u][2], bv[u][3]);
+  }
 }
 
-template <typename T, int BM, int BN, int BK>
-__global__ void __launch_bounds__(THREADS)
-pf_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-          int M, int N, int K, int tiles_per_block) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + BK * (BM + 1);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.x * BM;
-  const int gn = (N + BN - 1) / BN;
-  const int j_lo = blockIdx.y * tiles_per_block;
-  const int j_hi = min(j_lo + tiles_per_block, gn);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    load_a<T, BM, BK>(As, a, M, K, m0, k0);       // resident across the N sweep
-    for (int jt = j_lo; jt < j_hi; ++jt) {
-      const int n0 = jt * BN;
-      __syncthreads();
-      load_b<T, BN, BK>(Bs, b, K, N, k0, n0);
-      __syncthreads();
-      float acc[BM / 16][BN / 16];
+// The products of one stage for the 64 rows of warpgroup wg, per k8 step
+// lo_a hi_b and hi_a lo_b into `small`, then hi_a hi_b into `big`, which
+// the stage's first step overwrites; issued and committed, not waited for
+template <int TM>
+__device__ __forceinline__ void mma_stage(float (&small)[TN / 2],
+                                          float (&big)[TN / 2],
+                                          const uint8_t* st, int wg) {
+  using T = Tile<TM>;
+  const uint8_t* a_hi = st + wg * 64 * 128;
+  const uint8_t* a_lo = a_hi + T::A_PART;
+  const uint8_t* b_hi = st + 2 * T::A_PART;
+  const uint8_t* b_lo = b_hi + T::B_PART;
+  hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < BM / 16; ++i)
+  for (int kk = 0; kk < BKS / 8; ++kk) {
+    const uint64_t ah = hopper::desc_sw128(a_hi + 32 * kk, 16, 1024);
+    const uint64_t al = hopper::desc_sw128(a_lo + 32 * kk, 16, 1024);
+    const uint64_t bh = hopper::desc_sw128(b_hi + 32 * kk, 16, 1024);
+    const uint64_t bl = hopper::desc_sw128(b_lo + 32 * kk, 16, 1024);
+    hopper::wgmma_tf32_ss<TN>(small, al, bh);
+    hopper::wgmma_tf32_ss<TN>(small, ah, bl);
+    hopper::wgmma_tf32_ss<TN>(big, ah, bh, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+template <int R>
+__device__ __forceinline__ void add_into(float (&acc)[R], const float (&x)[R]) {
 #pragma unroll
-        for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
-      mma_tile<BM, BN, BK>(acc, As, Bs, ty, tx);
-      // the partial sum, rounded to the output dtype, added at that dtype
+  for (int i = 0; i < R; ++i) acc[i] += x[i];
+}
+
+// The warpgroup's 64 x TN slice of the tile into c (row stride N): stored
+// (add = false) or added to what c holds, in float2 pairs where N is even.
+// Thread t owns the same entries on every call, and loads all of its old
+// pairs before it stores any, so their loads are in flight together.
+__device__ __forceinline__ void put_tile(float* __restrict__ c,
+                                         const float (&acc)[TN / 2], int wg,
+                                         int m0, int n0, int M, int N,
+                                         bool add) {
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % WG) / 32;
+  const int row0 = m0 + wg * 64 + 16 * w + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+  float2 old[TN / 8][2];
 #pragma unroll
-      for (int i = 0; i < BM / 16; ++i) {
-        const int r = m0 + ty + 16 * i;
-        if (r >= M) continue;
+  for (int cc = 0; cc < TN / 8; ++cc)
 #pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          const int col = n0 + tx + 16 * j;
-          if (col >= N) continue;
-          T* out = c + static_cast<size_t>(r) * N + col;
-          const T part = from_f<T>(acc[i][j]);
-          *out = k0 == 0 ? part : from_f<T>(to_f(*out) + to_f(part));
-        }
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i, col = col0 + 8 * cc;
+      old[cc][i] = make_float2(0.f, 0.f);
+      if (add && (N & 1) == 0 && row < M && col < N)
+        old[cc][i] = *reinterpret_cast<const float2*>(c + static_cast<size_t>(row) * N + col);
+    }
+#pragma unroll
+  for (int cc = 0; cc < TN / 8; ++cc)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i, col = col0 + 8 * cc;
+      if (row >= M || col >= N) continue;
+      float* p = c + static_cast<size_t>(row) * N + col;
+      const float v0 = acc[4 * cc + 2 * i], v1 = acc[4 * cc + 2 * i + 1];
+      if ((N & 1) == 0) {                   // col + 1 < N as well
+        *reinterpret_cast<float2*>(p) =
+            make_float2(old[cc][i].x + v0, old[cc][i].y + v1);
+      } else {
+        p[0] = add ? p[0] + v0 : v0;
+        if (col + 1 < N) p[1] = add ? p[1] + v1 : v1;
       }
     }
+}
+
+// The consumer warpgroups' state across the stages of one tile.  The
+// tensor cores add into an fp32 accumulator with truncation, so an
+// accumulator that carried the whole sum across K would lose up to an ulp
+// of the running sum at every product (1.4e-4 at K = 700 on the card);
+// each stage's hi_a hi_b sum (32 of K) therefore lands in a fresh
+// accumulator and is added into `sum` on the CUDA cores, rounded to
+// nearest, once the stage is done.  The small terms, 2^-10 of the sum,
+// stay in one tensor-core accumulator per K block.  Two stage
+// accumulators alternate, so the products of stage kt run while stage
+// kt - 1's are added.
+template <int TM>
+struct Consumer {
+  float sum[TN / 2], small[TN / 2];
+  bool held = false;                        // stage kt - 1 not yet released
+
+  __device__ __forceinline__ void init() {
+    hopper::zero(sum);
+    hopper::zero(small);
+  }
+
+  // stage kt into `cur`; `prev` holds stage kt - 1's big sum
+  __device__ __forceinline__ void step(int kt, float (&cur)[TN / 2],
+                                       float (&prev)[TN / 2],
+                                       const uint8_t* ring, uint64_t* full,
+                                       uint64_t* empty, float* __restrict__ c,
+                                       int wg, int m0, int n0, int M, int N,
+                                       int nk, int per_block) {
+    using T = Tile<TM>;
+    constexpr int S = T::STAGES;
+    const bool leader = threadIdx.x % 32 == 0;
+    const int s = kt % S;
+    hopper::mbar_wait(&full[s], (kt / S) & 1);
+    mma_stage<TM>(small, cur, ring + s * T::STAGE_BYTES, wg);
+    const bool flush = (kt + 1) % per_block == 0 || kt + 1 == nk;
+    if (flush) {
+      hopper::wgmma_wait<0>();
+    } else {
+      hopper::wgmma_wait<1>();              // the previous stage is done
+    }
+    if (held) {
+      hopper::fence_regs(prev);
+      add_into(sum, prev);
+      if (leader) hopper::mbar_arrive(&empty[(kt + S - 1) % S]);
+    }
+    held = !flush;
+    if (flush) {                            // the K block's (AF: K's) sum
+      hopper::fence_regs(cur);
+      hopper::fence_regs(small);
+      if (leader) hopper::mbar_arrive(&empty[s]);
+      add_into(sum, cur);
+      add_into(sum, small);
+      put_tile(c, sum, wg, m0, n0, M, N, kt >= per_block);
+      init();
+    }
+  }
+};
+
+// AF (kblock = 0): one output tile a block, the sum across all of K.  PF
+// (kblock = bk / 32 stages): a fresh sum per K block, added into c.
+template <int TM>
+__global__ void __launch_bounds__(Tile<TM>::THREADS, 1)
+mm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+          float* __restrict__ c, int M, int N, int K, int lda, int ldb,
+          int kblock) {
+  using T = Tile<TM>;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align1024(smem_raw);          // [S][STAGE_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * T::STAGE_BYTES);
+  uint64_t* empty = full + S;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int nk = (K + BKS - 1) / BKS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], WG);               // every producer thread
+      hopper::mbar_init(&empty[s], T::NC * 4);       // one arrival per warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == T::NC) {                                 // producer
+    const int t = threadIdx.x - T::NC * WG;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S;
+      hopper::mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+      produce<TM>(ring + s * T::STAGE_BYTES, a, b, M, N, K, lda, ldb, m0, n0,
+                  kt * BKS, t);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+  const int per_block = kblock > 0 ? kblock : nk;
+  Consumer<TM> con;
+  float big0[TN / 2], big1[TN / 2];
+  con.init();
+  for (int kt = 0; kt < nk; kt += 2) {
+    con.step(kt, big0, big1, ring, full, empty, c, wg, m0, n0, M, N, nk,
+             per_block);
+    if (kt + 1 < nk)
+      con.step(kt + 1, big1, big0, ring, full, empty, c, wg, m0, n0, M, N, nk,
+               per_block);
   }
 }
 
-template <int BM, int BN, int BK>
-constexpr size_t smem_bytes() {
-  return (static_cast<size_t>(BK) * (BM + 1) + static_cast<size_t>(BK) * BN) *
-         sizeof(float);
-}
-
-template <typename T, int BM, int BN, int BK>
-int launch(int pf, const void* a, const void* b, void* c, int M, int N, int K,
-           int tiles_per_block, cudaStream_t stream) {
-  const size_t smem = smem_bytes<BM, BN, BK>();
-  const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
-  if (pf) {
-    auto kern = pf_kernel<T, BM, BN, BK>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    const dim3 grid(gm, (gn + tiles_per_block - 1) / tiles_per_block);
-    kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(a),
-                                          static_cast<const T*>(b),
-                                          static_cast<T*>(c), M, N, K,
-                                          tiles_per_block);
-  } else {
-    auto kern = af_kernel<T, BM, BN, BK>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    const dim3 grid(gn, gm);
-    kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(a),
-                                          static_cast<const T*>(b),
-                                          static_cast<T*>(c), M, N, K);
-  }
+template <int TM>
+int launch(const float* a, const float* b, float* c, int M, int N, int K,
+           int lda, int ldb, int kblock, cudaStream_t stream) {
+  using T = Tile<TM>;
+  auto kern = mm_kernel<TM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(a, b, c, M, N, K, lda, ldb,
+                                              kblock);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int pf, int bm, int bn, int bk, const void* a, const void* b,
-             void* c, int M, int N, int K, int tiles_per_block,
-             cudaStream_t stream) {
-#define CIM_TILE(BM_, BN_, BK_)                                              \
-  if (bm == BM_ && bn == BN_ && bk == BK_)                                   \
-    return launch<T, BM_, BN_, BK_>(pf, a, b, c, M, N, K, tiles_per_block,   \
-                                    stream);
-  CIM_TILE(128, 128, 128)
-  CIM_TILE(128, 128, 64)
-  CIM_TILE(128, 64, 128)
-  CIM_TILE(128, 64, 64)
-  CIM_TILE(64, 128, 128)
-  CIM_TILE(64, 128, 64)
-  CIM_TILE(64, 64, 128)
-  CIM_TILE(64, 64, 64)
-#undef CIM_TILE
+// tm x 64: the block tile (cim_matmul.fp32_tiles); bk sets PF's K blocks
+int dispatch(int pf, int tm, int bk, const void* a, const void* b, void* c,
+             int M, int N, int K, int lda, int ldb, cudaStream_t stream) {
+  if (bk != 64 && bk != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int kblock = pf ? bk / BKS : 0;
+  auto pa = static_cast<const float*>(a);
+  auto pb = static_cast<const float*>(b);
+  auto pc = static_cast<float*>(c);
+  if (tm == 128)
+    return launch<128>(pa, pb, pc, M, N, K, lda, ldb, kblock, stream);
+  if (tm == 64)
+    return launch<64>(pa, pb, pc, M, N, K, lda, ldb, kblock, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace tf
 
 // ---- bfloat16: wgmma + TMA ------------------------------------------------
 
@@ -568,18 +694,21 @@ int dispatch(int pf, int bm, int bn, int bk, const void* a, const void* b,
 extern "C" {
 
 // a [M, K] (rows lda apart), b [K, N] (rows ldb apart) -> c [M, N]
-// contiguous, all of one dtype (0: float32, which needs lda = K and ldb = N;
-// 1: bfloat16, which needs lda and ldb multiples of 8 and 16-byte-aligned
-// bases, for TMA).  pf = 0 runs AF, 1 runs PF (each PF block sweeps
-// tiles_per_block N tiles).  bm, bn, bk in {64, 128}.  Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
+// contiguous, all of one dtype (0: float32, which needs K and lda
+// multiples of 4 and a 16-byte-aligned a; 1: bfloat16, which needs lda and
+// ldb multiples of 8 and 16-byte-aligned bases, for TMA).  pf = 0 runs AF,
+// 1 runs PF (each bf16 PF block sweeps tiles_per_block N tiles; each fp32
+// block owns one tile).  bm, bn, bk in {64, 128}; for float32, bm x bn is
+// the block tile (bn = 64; a split of the caller's, cim_matmul.fp32_tiles).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
 int cim_matmul(int dtype, int pf, int bm, int bn, int bk, const void* a,
                const void* b, void* c, int M, int N, int K, int lda, int ldb,
                int tiles_per_block, void* stream) {
   if (M == 0 || N == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && lda == K && ldb == N)
-    return dispatch<float>(pf, bm, bn, bk, a, b, c, M, N, K, tiles_per_block, s);
+  if (dtype == 0 && K % 4 == 0 && lda % 4 == 0 && lda >= K && ldb >= N &&
+      bn == tf::TN)
+    return tf::dispatch(pf, bm, bk, a, b, c, M, N, K, lda, ldb, s);
   if (dtype == 1 && lda % 8 == 0 && ldb % 8 == 0 && lda >= K && ldb >= N)
     return tc::dispatch(pf, bm, bn, bk, a, b, c, M, N, K, lda, ldb,
                         tiles_per_block, s);

@@ -9,7 +9,11 @@
 // - wgmma shared-memory descriptors for 128-byte-swizzled bf16 tiles, the
 //   m64n64k16 / m64n128k16 bf16 -> fp32 products with A in shared memory
 //   (wgmma_ss) or in registers (wgmma_rs), fence / commit / wait, and
-//   slices of an accumulator wider than one product's N.
+//   slices of an accumulator wider than one product's N;
+// - the 3xTF32 pieces of the fp32 routes: the split of an fp32 value into
+//   tf32 hi + lo parts, stores into a 128-byte-swizzled tile written by
+//   threads (and the proxy fence that shows them to wgmma), and the
+//   m64nNk8 tf32 -> fp32 products (wgmma_tf32_ss, wgmma_tf32_rs).
 //
 // Layouts.  Every shared-memory tile here is a stack of TMA boxes whose inner
 // extent is 64 bf16 values (128 bytes, the swizzle's span): row r of a box
@@ -20,6 +24,13 @@
 // 64 values are M or N; wgmma's transpose bit set) its 8-row K groups are
 // again 1024 bytes apart (SBO), one k16 step is +2048 bytes, and the next
 // 64-wide MN chunk is the next box (LBO = the box's bytes).
+//
+// A tf32 operand is read K-major only (wgmma has no transpose for it).  Its
+// tiles have the same byte geometry: a box row is 128 bytes, 32 fp32 values
+// of K, so one k8 step is again +32 bytes and the descriptors are those of
+// the bf16 K-major operands.  The fp32 routes write these tiles with
+// threads (st.shared), not TMA: element (row r, k) of a box sits at byte
+// 128 r + 16 ((k / 4) ^ (r % 8)) + 4 (k % 4) (sw128_offset).
 #pragma once
 
 #include <cuda.h>
@@ -296,5 +307,160 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
 }
+
+// ---- device: 3xTF32 --------------------------------------------------------
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as an fp32 bit pattern whose low 13 bits are zero: half a
+// tf32 step added to the magnitude bits, the low 13 bits cleared (two
+// integer instructions, where cvt.rna.tf32.f32 runs at the slower
+// conversion rate and gives the same bits for finite x)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + e: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact in
+// fp32), |e| <= 2^-22 |x|.  Three tf32 products lo_a hi_b + hi_a lo_b +
+// hi_a hi_b leave out lo_a lo_b (<= 2^-22 |ab|): about 2^-21 relative
+// per product, where one product hi_a hi_b is off by about 2^-11.  Both
+// parts are stored with their low 13 bits zero, so the products do not
+// depend on how wgmma reads a raw fp32 word (it truncates,
+// tests/tf32_probe.cu; fed so, an unrounded lo took a 512 x 4096 x 1024
+// product past the 1e-4 tolerance on an H100).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// byte offset of element (row r, k) in a 128-byte-swizzled box of fp32
+// rows, its 16-byte chunk k / 4 (see the layouts above)
+__device__ __forceinline__ uint32_t sw128_offset(int r, int chunk) {
+  return static_cast<uint32_t>(r * 128 + ((chunk ^ (r & 7)) << 4));
+}
+
+// the hi and lo parts of four consecutive fp32 values of K, each part one
+// 16-byte store at `off` of its tile
+__device__ __forceinline__ void store_split4(uint8_t* hi_tile,
+                                             uint8_t* lo_tile, uint32_t off,
+                                             float x0, float x1, float x2,
+                                             float x3) {
+  uint4 h, l;
+  split_tf32(x0, h.x, l.x);
+  split_tf32(x1, h.y, l.y);
+  split_tf32(x2, h.z, l.z);
+  split_tf32(x3, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi_tile + off) = h;
+  *reinterpret_cast<uint4*>(lo_tile + off) = l;
+}
+
+// Makes this thread's st.shared writes visible to the async proxy, which
+// wgmma reads its shared-memory operands through; each writer runs it
+// before it arrives on the barrier that the wgmma issuer waits on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x N] (fp32, registers) += A[64 x 8] B[8 x N], tf32 operands, both
+// K-major.  The accumulator fragment is that of the bf16 products above.
+// wgmma_tf32_ss reads A and B through descriptors; wgmma_tf32_rs reads A
+// from four registers: a[0] = A(g, c), a[1] = A(g + 8, c), a[2] = A(g,
+// c + 4), a[3] = A(g + 8, c + 4) for row g = 16 w + l / 4, column c = l % 4
+// (the A fragment of mma.m16n8k8.tf32, one 16-row slice per warp).
+// scale_d = 0 overwrites D with the product instead of adding to it.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d = 1);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 }  // namespace hopper

@@ -2,8 +2,10 @@
 
 The kernel (``csrc/flash_attention.cu``) is streaming-softmax attention,
 one block per (batch-head, query tile), with the reference's masking and
-guards; bfloat16 runs on the tensor cores (``wgmma``, tiles brought by
-TMA), float32 on the CUDA cores.  It replaces the Pallas TPU kernel of the reference
+guards, on the tensor cores (``wgmma``): bfloat16 on tiles brought by
+TMA, float32 in 3xTF32 (each operand split into tf32 hi + lo parts by the
+kernel's producer threads, three products summed in fp32).  It replaces
+the Pallas TPU kernel of the reference
 (``repro/kernels/flash_attention.py``).  Built and loaded by ``build.py``
 at first use; nothing here runs when the module is imported.
 """
@@ -99,9 +101,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_tensor("q", q, (bh, t, d), q.dtype, q.device)
     _build.check_tensor("k", k, (bh, s, d), q.dtype, q.device)
     _build.check_tensor("v", v, (bh, s, d), q.dtype, q.device)
-    if q.dtype == torch.bfloat16:      # TMA reads from 16-byte-aligned bases
-        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
-                   for x in (q, k, v))
+    # TMA (bf16) and the fp32 route's 16-byte loads read 16-byte-aligned bases
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     if return_lse and s == 0:
         raise ValueError("a log-sum-exp needs S >= 1")
     out = torch.empty_like(q)

@@ -286,7 +286,9 @@ def test_flash_attention_bf16_every_tile_set(card, d, shape, causal, tiles):
 def test_tensor_core_kernels_have_hgmma_in_sass(card):
     """Every bf16 instantiation of cim_matmul and flash_attention, and
     every instantiation of flash_attention_bwd's two passes, issues wgmma
-    (HGMMA) and TMA loads (UTMALDG) in its SASS."""
+    (HGMMA) and TMA loads (UTMALDG) in its SASS; every fp32 (3xTF32)
+    instantiation of cim_matmul and flash_attention issues wgmma (its
+    producer threads load with plain loads, not TMA)."""
     import re
     import subprocess
     from pathlib import Path
@@ -296,18 +298,160 @@ def test_tensor_core_kernels_have_hgmma_in_sass(card):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     tool = Path(build.nvcc()).with_name("cuobjdump")
-    for mod, names, want in ((cm, ("af_kernelILi", "pf_kernelILi"), 16),
-                             (fa, ("flash_kernelILi",), 9),
-                             (fab, ("dq_kernelILi", "dkdv_kernelILi"), 6)):
+    # (module, names of the instantiations' functions, how many, TMA)
+    for mod, names, want, tma in (
+            (cm, ("2tc9af_kernelILi", "2tc9pf_kernelILi"), 16, True),
+            (cm, ("2tf9mm_kernelILi",), 2, False),
+            (fa, ("2tc12flash_kernelILi",), 9, True),
+            (fa, ("2tf12flash_kernelILi",), 3, False),
+            (fab, ("dq_kernelILi", "dkdv_kernelILi"), 6, True)):
         sass = subprocess.run([str(tool), "-sass",
                                str(build.build(mod.SOURCE, mod.NVCC_FLAGS))],
                               capture_output=True, text=True,
                               check=True).stdout
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         tc = [f for f in funcs if any(n in f.split()[0] for n in names)]
-        assert len(tc) == want
+        assert len(tc) == want, names
         for f in tc:
-            assert "HGMMA" in f and "UTMALDG" in f, f.split()[0]
+            assert "HGMMA" in f, f.split()[0]
+            assert ("UTMALDG" in f) == tma, f.split()[0]
+
+
+# ---- the fp32 routes (3xTF32 wgmma) -----------------------------------------
+
+#: tf32 keeps 10 explicit mantissa bits: a value 3/4 of a tf32 step above 1
+TF32_STEP = 2.0 ** -10
+
+
+def _probe(card, rs, a, b):
+    """One wgmma m64n64k8 .tf32 product of raw fp32 a [64, 8] and b^T
+    [64, 8] (tests/tf32_probe.cu): A from shared memory (rs = 0) or from
+    registers (rs = 1)."""
+    import ctypes
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    src = Path(__file__).resolve().parent / "tf32_probe.cu"
+    lib = build.load(src, build.BASE_FLAGS + ("-I", str(build.CSRC)))
+    lib.tf32_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.tf32_probe.restype = ctypes.c_int
+    a, b = (torch.as_tensor(x, dtype=torch.float32).to(card).contiguous()
+            for x in (a, b))
+    d = torch.empty((64, 64), dtype=torch.float32, device=card)
+    err = lib.tf32_probe(rs, a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                         torch.cuda.current_stream(card).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return d.cpu().numpy()
+
+
+@pytest.mark.parametrize("rs", [0, 1], ids=["smem", "registers"])
+def test_wgmma_tf32_reads_raw_fp32_as_tf32(card, rs):
+    """How wgmma .tf32 treats a raw fp32 word, in one launch: with every
+    A value 1 + 3/4 of a tf32 step and B ones, each output is 8 times what
+    the tensor cores read.  Its low 13 bits never reach the product
+    (1 + 0.75 step would give 8.0059): the value is truncated (8) or
+    rounded (8.0078).  That is why the fp32 routes split every operand
+    into hi + lo parts and run three products; they store hi themselves
+    (cvt.rna), so they depend on neither reading.  The same launch with
+    A = r * 8 + k and B^T the identity returns A, which checks the
+    swizzled K-major layout (smem) and the A fragment's register layout
+    (registers) that the fp32 routes use."""
+    ones = np.zeros((64, 8), np.float32)
+    ones[:8] = 1.0
+    x = np.float32(1 + 0.75 * TF32_STEP)
+    read = _probe(card, rs, np.full((64, 8), x, np.float32), ones)
+    got = float(read[0, 0])
+    print(f"wgmma .tf32 ({'registers' if rs else 'smem'}) reads "
+          f"1 + 0.75 step as {got / 8!r}: "
+          + ("truncated" if got == 8.0 else "rounded to nearest"
+             if got == 8 * (1 + TF32_STEP) else "neither"))
+    assert got in (8.0, 8 * (1 + TF32_STEP))
+    np.testing.assert_array_equal(read[:, :8], got)
+    a = (np.arange(64)[:, None] * 8 + np.arange(8)[None]).astype(np.float32)
+    eye = np.zeros((64, 8), np.float32)
+    eye[np.arange(8), np.arange(8)] = 1.0
+    out = _probe(card, rs, a, eye)
+    np.testing.assert_array_equal(out[:, :8], a)
+    np.testing.assert_array_equal(out[:, 8:], 0.0)
+
+
+@pytest.mark.parametrize("tiling", ["AF", "PF"])
+@pytest.mark.parametrize("tiles", [(bm, bn, bk) for bm in (64, 128)
+                                   for bn in (64, 128) for bk in (64, 128)],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_cim_matmul_fp32_every_tile_set(card, tiling, tiles):
+    """The 3xTF32 route at every tile set on a ragged shape (N = 250 is
+    padded to 252 for the 16-byte loads), at the fp32 tolerance."""
+    rng = np.random.default_rng(11)
+    a = _on(card, rng.standard_normal((257, 300)))
+    b = _on(card, rng.standard_normal((300, 250)))
+    bm, bn, bk = tiles
+    got = ops.cim_matmul(a, b, tiling=tiling, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul_ref(a, b, tiling=tiling,
+                                                   bk=bk),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tiling", ["AF", "PF"])
+def test_cim_matmul_fp32_long_k(card, tiling):
+    """K = 4096 (512 x 4096 x 1024): 128 stages of three products each
+    stay within 1e-4 of the plain version."""
+    rng = np.random.default_rng(12)
+    a = _on(card, rng.standard_normal((512, 4096)))
+    b = _on(card, rng.standard_normal((4096, 1024)))
+    got = ops.cim_matmul(a, b, tiling=tiling)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul_ref(a, b, tiling=tiling),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_cim_matmul_fp32_misaligned_base(card):
+    """A contiguous fp32 operand 4 bytes off a 16-byte boundary goes
+    through an aligned copy, not around the kernel."""
+    rng = np.random.default_rng(13)
+    buf = _on(card, rng.standard_normal(1 + 128 * 192))
+    a = buf[1:].view(128, 192)
+    b = _on(card, rng.standard_normal((192, 136)))
+    before = ops.cim_matmul.launches
+    got = ops.cim_matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.cim_matmul.launches == before + 1
+    torch.testing.assert_close(got, ref.matmul_ref(a, b), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 1000, 1533), (2, 1533, 1000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_fp32_yi_width_ragged(card, shape, causal):
+    """yi-6b's head width (128) with T != S, both ragged, on the 3xTF32
+    route, at the fp32 tolerance."""
+    bh, t, s = shape
+    rng = np.random.default_rng(14)
+    q, k, v = (_on(card, rng.standard_normal((bh, n, 128)))
+               for n in (t, s, s))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v,
+                                                      causal=causal),
+                               atol=2e-3, rtol=0)
+
+
+def test_flash_attention_fp32_misaligned_base(card):
+    """A contiguous fp32 q 4 bytes off a 16-byte boundary goes through an
+    aligned copy, not around the kernel."""
+    rng = np.random.default_rng(15)
+    buf = _on(card, rng.standard_normal(1 + 128 * 64))
+    q = buf[1:].view(1, 128, 64)
+    k, v = (_on(card, rng.standard_normal((1, 96, 64))) for _ in range(2))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True),
+                               atol=2e-3, rtol=0)
 
 
 # ---- strategy_eval at the main path's shapes, exact ------------------------

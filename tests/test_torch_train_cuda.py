@@ -117,7 +117,7 @@ def test_flash_attention_bwd_against_plain(card, d, causal, bh, t, s):
     for t in fa_k.WIDTH_TILES[fa_k.compiled_width(d)]],
     ids=lambda x: f"bq{x[0]}xbk{x[1]}" if isinstance(x, tuple) else str(x))
 def test_flash_attention_lse_every_route(card, d, causal, dtype, tiles):
-    """Both routes of the forward kernel (fp32 on the CUDA cores, bf16 on
+    """Both routes of the forward kernel (fp32 in 3xTF32, bf16, both on
     the tensor cores) at every tile set of every width: the log-sum-exp
     against the plain one, and the output the same bits with and without
     it."""

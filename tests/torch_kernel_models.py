@@ -37,6 +37,22 @@ recomputed from its entry state and the reverse recurrence from its
 incoming g, each lane's part of da summed over the chunk, the parts added
 over b, then the chunks.  Every da is 2^(dt a log2(e)), as the kernel
 takes it (ex2); the sums over s and over channels are torch's.
+
+``tf32_matmul_model`` and ``tf32_attention_model`` repeat the fp32 routes
+of ``csrc/cim_matmul.cu`` and ``csrc/flash_attention.cu`` (3xTF32 on the
+tensor cores): every operand split by ``tf32_parts`` into hi = tf32(x) and
+lo = tf32(x - hi) (to nearest, ties away from zero), each k8 step of a
+product adding lo_a hi_b, then hi_a lo_b, then hi_a hi_b
+(one step's eight products are exact in fp32 and summed there).  The
+matmul sums each 32-wide K stage's hi_a hi_b steps apart and adds that to
+the tile's sum, the small terms into one sum per K block, added last; AF
+keeps one block, PF a fresh one per bk-wide K block, added to the fp32
+output block after block.
+The attention runs the bf16 route's softmax (log2 units, running max,
+steps past S or above the causal diagonal change nothing) in steps of 64
+keys at compiled widths 64 and 128 and 32 at 256, S = Q K^T over d in k8 steps and
+P V over the step's keys in k8 steps.  ``single=True`` keeps hi_a hi_b
+alone: one tf32 product, which the fp32 tolerance does not admit.
 """
 import math
 
@@ -288,3 +304,110 @@ def chunk_scan_bwd(xi, dt, bmat, cmat, a, h0, dy, dh_last, *, chunk=32):
         for part in da_parts:
             da = da + part[b]
     return dxi, ddt, dB, dC, da, dh0
+
+
+def tf32_parts(x):
+    """fp32 ``x`` as the fp32 routes' tf32 operands (hi, lo): hi = tf32(x),
+    lo = tf32(x - hi), each rounded to nearest with ties away from zero
+    through an int32 view as ``split_tf32`` rounds them (half a tf32 step
+    added to the magnitude bits, the low 13 bits cleared)."""
+    def rna(y):
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x.to(torch.float32))
+    return hi, rna(x.to(torch.float32) - hi)
+
+
+def _tf32_products(a_parts, b_parts, single):
+    """The operand pairs of one k8 step, in the kernels' order."""
+    (ah, al), (bh, bl) = a_parts, b_parts
+    return [(ah, bh)] if single else [(al, bh), (ah, bl), (ah, bh)]
+
+
+def tf32_matmul_model(a, b, *, tiling="AF", bk=128, single=False):
+    """The fp32 cim_matmul route's arithmetic: a [M, K] @ b [K, N] fp32.
+    Per 32-wide K stage the hi_a hi_b steps sum into a fresh accumulator
+    that is then added to the tile's sum; the small terms sum into one
+    accumulator per K block (AF: all of K), added last."""
+    f = torch.float32
+    m, k = a.shape
+    n = b.shape[1]
+    ap, bp = tf32_parts(a), tf32_parts(b)
+    block = bk if tiling == "PF" else max(k, 1)
+    out = total = small = torch.zeros((m, n), dtype=f)
+    for k0 in range(0, k, 32):
+        if k0 % block == 0:
+            total = small = torch.zeros((m, n), dtype=f)
+        big = torch.zeros((m, n), dtype=f)
+        for j in range(k0, min(k0 + 32, k), 8):
+            pairs = _tf32_products([p[:, j:j + 8] for p in ap],
+                                   [p[j:j + 8] for p in bp], single)
+            for x, y in pairs[:-1]:
+                small = small + x @ y
+            big = big + pairs[-1][0] @ pairs[-1][1]
+        total = total + big
+        if (k0 + 32) % block == 0 or k0 + 32 >= k:
+            total = total + small
+            out = total if k0 < block else out + total
+    return out
+
+
+def _steps(parts_a, parts_b, single):
+    """[steps, ...] partial products of each k8 step of an einsum over the
+    last axis, in the order the kernel adds them."""
+    (ah, al), (bh, bl) = parts_a, parts_b
+    pairs = _tf32_products((ah, al), (bh, bl), single)
+    n = ah.shape[-1] // 8
+    split = lambda x: x.unflatten(-1, (n, 8))
+    return [torch.einsum("bqnd,bsnd->nbqs", split(x), split(y))
+            for x, y in pairs]
+
+
+def _add_steps(acc, partials):
+    """acc plus each step's partial products, step by step, the kernel's
+    three products of a step in order."""
+    for i in range(partials[0].shape[0]):
+        for part in partials:
+            acc = acc + part[i]
+    return acc
+
+
+def tf32_attention_model(q, k, v, *, causal, single=False):
+    """The fp32 flash_attention route's arithmetic: q [BH, T, d], k, v
+    [BH, S, d] fp32, run at the compiled width that holds d on zero-padded
+    columns."""
+    f = torch.float32
+    d_out = q.shape[-1]
+    width = next(w for w in (64, 128, 256) if d_out <= w)
+    ks = 32 if width == 256 else 64
+    scale = torch.tensor(1.0 / math.sqrt(d_out) * LOG2E, dtype=f)
+    q, k, v = _pad_cols(width, q.to(f), k.to(f), v.to(f))
+    bh, t, d = q.shape
+    s_len = k.shape[1]
+    steps = -(-s_len // ks)
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, steps * ks - s_len))
+            for x in (k, v))
+    qp = tf32_parts(q)
+    qpos = torch.arange(t)[:, None]
+    m = torch.full((bh, t), NEG_INF, dtype=f)
+    l = torch.zeros((bh, t), dtype=f)
+    acc = torch.zeros((bh, t, d), dtype=f)
+    for kv0 in range(0, steps * ks, ks):
+        kp = tf32_parts(k[:, kv0:kv0 + ks])
+        vp = tf32_parts(v[:, kv0:kv0 + ks].transpose(1, 2))   # V^T [d, keys]
+        sc = _add_steps(torch.zeros((bh, t, ks), dtype=f),
+                        _steps(qp, kp, single))
+        kpos = torch.arange(kv0, kv0 + ks)[None, :]
+        keep = kpos < s_len
+        if causal:
+            keep = keep & (kpos <= qpos)
+        sc = torch.where(keep, sc * scale, torch.tensor(NEG_INF, dtype=f))
+        m_new = torch.maximum(m, sc.max(-1).values)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = _add_steps(acc * alpha[..., None],
+                         _steps(tf32_parts(p), vp, single))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out[..., :d_out]
