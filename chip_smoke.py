@@ -350,9 +350,16 @@ def traced_busy(torch, fn, sync) -> tuple[float, float]:
         fn()
         sync()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in trace.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us, wall
+    return device_us(torch, trace), wall
+
+
+def device_us(torch, trace) -> float:
+    """The device time of a profile's kernels, copies and memsets (µs).
+    The ranges of ``obs`` spans, which reach a running profiler, are left
+    out: their device time is that of the kernels under them."""
+    return sum(e.self_device_time_total for e in trace.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
 
 
 def busy_text(busy_us: float, wall: float) -> str:
@@ -1652,9 +1659,7 @@ def phase_service(torch, port_core, ops, dev, jobs, meta, results,
             if any(got[f] != want[f]
                    for f in ("config", "per_op_strategy", "metrics")):
                 fail(f"traced repeat differs for {obj['key']}")
-        busy_us = sum(e.self_device_time_total
-                      for e in trace.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us = device_us(torch, trace)
         spans = port_obs.tracer().events()
         span = lambda name, **a: [e for e in spans if e["name"] == name
                                   and all(e["args"].get(k) == v

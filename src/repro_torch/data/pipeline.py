@@ -25,6 +25,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -118,7 +120,8 @@ def make_batch_iterator(stream, mesh, start_step: int = 0,
     """Background-threaded, prefetching, restartable iterator of batches
     placed on ``mesh`` (a ``DeviceMesh``: :func:`shard_batch`) or copied
     to a device (:func:`to_device`); closing it stops its producer
-    thread."""
+    thread.  The consumer's wait on the queue and its placement run in the
+    ``obs`` spans ``data.queue_get`` and ``data.pin_copy``."""
     from repro_torch.launch.mesh import is_mesh
 
     put = shard_batch if is_mesh(mesh) else to_device
@@ -144,7 +147,11 @@ def make_batch_iterator(stream, mesh, start_step: int = 0,
     th.start()
     try:
         while True:
-            yield put(q.get(), mesh)
+            with span("data.queue_get"):
+                host = q.get()
+            with span("data.pin_copy"):
+                batch = put(host, mesh)
+            yield batch
     finally:
         stop.set()
         th.join(timeout=2.0)

@@ -4,7 +4,9 @@ reference's ``launch/steps.py`` in PyTorch.
 ``make_train_step`` is the trainer's step: the loss, its gradients by
 autograd (through the hand-written kernels' backward on the card), and an
 in-place AdamW update; ``microbatches > 1`` accumulates fp32 gradients
-over equal slices of the batch, as the reference's scan does.
+over equal slices of the batch, as the reference's scan does.  Each of the
+three runs in an ``obs`` span (``step.forward``, ``step.backward``,
+``step.optimizer``), which a running torch profiler records.
 
 ``input_specs`` returns meta-device stand-ins of the cell's inputs
 (shapes and dtypes, no allocation: the twin of ``ShapeDtypeStruct``), and
@@ -21,6 +23,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import sharding as sh
 from repro_torch.models.model import Model, build_model
+from repro_torch.obs.trace import span
 from repro_torch.optim import AdamW
 
 
@@ -74,8 +77,10 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec, model: Model | None = None
 def _grads(model: Model, params, leaves: list, batch: dict):
     """(loss, metrics, gradients of the loss, one per leaf; None where the
     loss does not reach a leaf)."""
-    loss, metrics = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("step.forward"):
+        loss, metrics = model.loss(params, batch)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # on a mesh each gradient is placed as its parameter (autograd may
     # leave it Partial), so the optimizer's in-place updates see one layout
     grads = [g if g is None or not sh.is_dtensor(g)
@@ -96,9 +101,11 @@ def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1):
         def train_step(params, opt_state, batch, *, skip_nonfinite=False):
             leaves = list(params.parameters())
             loss, metrics, grads = _grads(model, params, leaves, batch)
-            params, opt_state, stats = optimizer.update(
-                grads, opt_state, params, ndims=model.reference_ndims(params),
-                skip_nonfinite=skip_nonfinite)
+            with span("step.optimizer"):
+                params, opt_state, stats = optimizer.update(
+                    grads, opt_state, params,
+                    ndims=model.reference_ndims(params),
+                    skip_nonfinite=skip_nonfinite)
             metrics = dict({k: v.detach() for k, v in metrics.items()},
                            loss=loss, **stats)
             return params, opt_state, metrics
@@ -123,9 +130,10 @@ def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1):
             loss_sum = loss_sum + loss
         grads = [g / microbatches for g in gsum]
         del gsum
-        params, opt_state, stats = optimizer.update(
-            grads, opt_state, params, ndims=model.reference_ndims(params),
-            skip_nonfinite=skip_nonfinite)
+        with span("step.optimizer"):
+            params, opt_state, stats = optimizer.update(
+                grads, opt_state, params, ndims=model.reference_ndims(params),
+                skip_nonfinite=skip_nonfinite)
         metrics = dict(stats, loss=loss_sum / microbatches,
                        tokens=torch.tensor(float(batch["tokens"].numel())))
         return params, opt_state, metrics

@@ -23,6 +23,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import COMPUTE_DTYPE, ShapeOnly, flash_prefill
 from repro_torch.models.sharding import Identity, is_dtensor
+from repro_torch.obs.trace import span
 
 MOE_AUX_COEF = 0.01
 
@@ -114,7 +115,8 @@ class Model:
         parameters require them."""
         logits, _, aux = self._apply(params, batch["tokens"],
                                      memory=self._memory(params, batch))
-        l, metrics = tf.lm_loss(logits, batch["labels"])
+        with span("model.loss"):
+            l, metrics = tf.lm_loss(logits, batch["labels"])
         if self.cfg.n_experts:
             l = l + MOE_AUX_COEF * aux
             metrics = dict(metrics, moe_aux=aux)

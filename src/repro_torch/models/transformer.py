@@ -14,7 +14,8 @@ pattern).  ``scan_layers`` changes nothing here.  ``remat`` does in a
 forward that records gradients: each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), keeping only its input, and is
 recomputed in the backward pass (``remat_policy="dots"`` is taken as
-``"full"``).
+``"full"``); the recompute runs in an ``obs`` span, ``model.remat``, and
+the final norm and head product in ``model.head``.
 
 Parameters come in two kinds (:func:`lm_init`): a serving tree keeps each
 weight in the dtype its forward reads (:func:`storage_dtype`, bf16 for
@@ -34,6 +35,7 @@ on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -61,6 +63,7 @@ from repro_torch.models.layers import (
     normal,
     rope,
 )
+from repro_torch.obs.trace import span
 
 CACHE_DTYPE = torch.bfloat16
 #: the weights the reference reads only through ``.astype(bf16)``: kept in
@@ -459,6 +462,15 @@ def stack_cache(cfg: ArchConfig, pattern, n_layers, batch, max_len,
             for kind in layer_kinds(pattern, n_layers)]
 
 
+def _remat_span():
+    """The ``model.remat`` span while a checkpointed layer runs as the
+    recompute inside the backward (a graph task is running; there is none
+    in the forward), else no span."""
+    if torch._C._current_graph_task_id() == -1:
+        return contextlib.nullcontext()
+    return span("model.remat")
+
+
 def stack_apply(
     params, x: torch.Tensor, cfg: ArchConfig, pattern, n_layers, *,
     caches: list | None = None,
@@ -473,9 +485,10 @@ def stack_apply(
     for i, kind in enumerate(layer_kinds(pattern, n_layers)):
         if remat:
             def layer(h, p=params["layers"][i], kind=kind):
-                h, _, a = block_apply(p, h, cfg, kind, memory=memory,
-                                      attention=attention, scan=scan,
-                                      shard_act=shard_act)
+                with _remat_span():
+                    h, _, a = block_apply(p, h, cfg, kind, memory=memory,
+                                          attention=attention, scan=scan,
+                                          shard_act=shard_act)
                 return h, a
             x, aux = _checkpoint.checkpoint(layer, x, use_reentrant=False)
             aux_tot = aux_tot + aux
@@ -557,11 +570,13 @@ def lm_apply(
         params["stack"], x, cfg, cfg.pattern, cfg.n_layers, caches=caches,
         memory=memory, attention=attention, scan=scan, shard_act=shard_act)
 
-    x = apply_norm(cfg.norm, params["ln_final"], x)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("btd,dv->btv", x.to(COMPUTE_DTYPE),
-                          head.to(COMPUTE_DTYPE))
-    return shard_act(logits.float(), "logits"), new_caches, aux
+    with span("model.head"):
+        x = apply_norm(cfg.norm, params["ln_final"], x)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.einsum("btd,dv->btv", x.to(COMPUTE_DTYPE),
+                              head.to(COMPUTE_DTYPE))
+        logits = shard_act(logits.float(), "logits")
+    return logits, new_caches, aux
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -15,6 +15,14 @@ wrapper: :func:`chrome_trace` returns a
 ``{"traceEvents": [...]}`` document Perfetto / ``chrome://tracing`` loads
 as-is.
 
+Spans reach a running ``torch.profiler`` too: while one is active, a span
+also enters ``torch.autograd.profiler.record_function(name)``, so it lands
+in the profiler's trace as a ``user_annotation`` event on the profiler's
+clock, beside the kernels its section launched.  The check reads the
+profiler's flag through ``sys.modules`` (this module imports no torch);
+with no profiler running a span makes no torch call, so no CUDA call and
+no synchronise.
+
 Environment:
 
 ``CIM_TUNER_TRACE``
@@ -29,6 +37,7 @@ import contextlib
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import typing
@@ -67,6 +76,15 @@ class Span:
         self.args.update(kw)
 
 
+def _profiler_note(name: str):
+    """``record_function(name)`` while a torch profiler is running, else
+    None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    return torch.autograd.profiler.record_function(name)
+
+
 class Tracer:
     """Bounded ring buffer of finished spans with optional JSONL sink."""
 
@@ -99,8 +117,13 @@ class Tracer:
         event's ``args`` payload.
         """
         sp = Span(name, cat, dict(args))
+        note = _profiler_note(name)
         try:
-            yield sp
+            if note is None:
+                yield sp
+            else:
+                with note:
+                    yield sp
         finally:
             sp.duration_s = time.perf_counter() - sp.t0
             self._record(sp)

@@ -12,7 +12,10 @@ when the caller passes ``ndims`` (``Model.reference_ndims``: the
 reference stacks the layers of its scanned groups [G, ...], so their
 norms and biases have 2 dims there and are decayed).  The schedule, the
 norm and the clip scale stay on the parameters' device as 0-dim fp32
-tensors; only ``skip_nonfinite`` reads the norm on the host.
+tensors; only ``skip_nonfinite`` reads the norm on the host.  ``update``
+runs its phases in ``obs`` spans: ``optim.schedule`` (the lr and the bias
+corrections, made on the host and copied), ``optim.norm``, ``optim.guard``
+(that read) and ``optim.apply`` (the per-leaf loop).
 
 DTensor parameters (a ``DeviceMesh`` cell) are updated on their local
 shards: the update is elementwise, so each rank's shard of the parameter,
@@ -27,6 +30,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs.trace import span
 
 
 def cosine_schedule(step, *, peak_lr: float, warmup: int, total: int,
@@ -140,30 +145,36 @@ class AdamW:
                  for p, g in zip(leaves, grads)]
         dev = leaves[0].device
         step = state["step"] + 1
-        lr = cosine_schedule(step, peak_lr=c.peak_lr, warmup=c.warmup_steps,
-                             total=c.total_steps).to(dev)
-        gnorm = global_norm(grads)
+        with span("optim.schedule"):
+            lr = cosine_schedule(step, peak_lr=c.peak_lr,
+                                 warmup=c.warmup_steps,
+                                 total=c.total_steps).to(dev)
+            f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+            b1c = (1.0 - f32(c.b1) ** f32(step)).to(dev)
+            b2c = (1.0 - f32(c.b2) ** f32(step)).to(dev)
+        with span("optim.norm"):
+            gnorm = global_norm(grads)
         stats = {"grad_norm": gnorm, "lr": lr}
         if skip_nonfinite:
-            stats["skipped"] = not math.isfinite(float(gnorm))
+            with span("optim.guard"):
+                stats["skipped"] = not math.isfinite(float(gnorm))
             if stats["skipped"]:
                 return params, state, stats
-        scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-        b1c = (1.0 - f32(c.b1) ** f32(step)).to(dev)
-        b2c = (1.0 - f32(c.b2) ** f32(step)).to(dev)
-        for p, g, m, v, nd in zip(leaves, grads, state["m"], state["v"],
-                                  ndims):
-            p, g, m, v = _locals(p, g, m, v)
-            g = g.float() * scale
-            # the reference's order: b1 m + ((1 - b1) g), b2 v + ((1 - b2) g) g
-            m.mul_(c.b1).add_(g * (1 - c.b1))
-            v.mul_(c.b2).add_((g * (1 - c.b2)).mul_(g))
-            upd = (m / b1c).div_(torch.sqrt(v / b2c).add_(c.eps))
-            if nd >= 2:                    # no decay on norms / biases
-                upd.add_(c.weight_decay * p.float())
-            p.copy_(p.float() - lr * upd)
-            del g, upd
+        with span("optim.apply"):
+            scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            for p, g, m, v, nd in zip(leaves, grads, state["m"], state["v"],
+                                      ndims):
+                p, g, m, v = _locals(p, g, m, v)
+                g = g.float() * scale
+                # the reference's order: b1 m + ((1 - b1) g),
+                # b2 v + ((1 - b2) g) g
+                m.mul_(c.b1).add_(g * (1 - c.b1))
+                v.mul_(c.b2).add_((g * (1 - c.b2)).mul_(g))
+                upd = (m / b1c).div_(torch.sqrt(v / b2c).add_(c.eps))
+                if nd >= 2:                    # no decay on norms / biases
+                    upd.add_(c.weight_decay * p.float())
+                p.copy_(p.float() - lr * upd)
+                del g, upd
         state["step"] = step
         return params, state, stats
