@@ -144,11 +144,19 @@ of which fails the run when it fails:
    against autograd of their plain versions on the card (attention row by
    row: each query's dq, each key's dk and dv), two launches
    bit-identical, timed per call and from a CUDA graph beside the plain
-   version, the bound and (attention) SDPA's backward; 15.b per config
+   version, the bound and (attention) SDPA's backward; then the
+   optimizer's kernels (``adamw.cu``) on the full-width leaf tables of
+   yi-6b and falcon-mamba-7b at 2 layers: the norm's sums and the norm
+   within 1e-6 relative of the plain versions', one update's p, m and v
+   bit-equal to the plain version's given the same norm, the norm and the
+   update timed per call and from a CUDA graph beside the plain versions
+   and their bounds (4 and 28 B a parameter), registers and no spills;
+   15.b per config
    (yi-6b 1 x 4096 tokens, falcon-mamba-7b 1 x 2048, gemma-7b 1 x 4096)
    ``Trainer`` for 10 steps on the synthetic stream with a checkpoint
    every 5 (launch counts reset just before and read just after: per step
-   2 forward launches a layer with remat and 1 backward), the loss
+   2 forward launches a layer with remat, 1 backward and the optimizer's
+   4, its last update taking every leaf), the loss
    falling, for yi-6b and falcon-mamba-7b a run of 5 steps resumed by a
    third to step 10 (losses within 1e-3 of the uninterrupted run's;
    gemma-7b saves no checkpoint and runs once, its kernels timed in that
@@ -162,7 +170,8 @@ of which fails the run when it fails:
    holds the least memory) ``python -m repro_torch.launch.train --arch
    yi-6b --set n_layers=8 --steps 4 --batch 1 --seq 4096`` in a fresh
    process.  The kernels line gains the two backward kernels with their training
-   launches.
+   launches, and ``adamw_apply`` and ``adamw_norm`` (the norm's three
+   launches) with their training launches and 15.a's yi-6b case.
 
 16. sharded (run after phase 15; its two timed training runs, 16.d's
    fresh process and then 16.a, run right after 15.c, one after the
@@ -172,8 +181,8 @@ of which fails the run when it fails:
    ``build_cell``'s training cell against ``make_train_step`` without a
    mesh from the same seed (losses and every updated leaf within 1e-6
    relative; 16 ``flash_attention`` and 8 ``flash_attention_bwd``
-   launches a step, under ``local_map``, in both), sec_per_step and peak
-   memory of both; 16.b ``ServeEngine(cfg, mesh)`` on the device
+   launches a step, under ``local_map``, and the optimizer's 4, in both),
+   sec_per_step and peak memory of both; 16.b ``ServeEngine(cfg, mesh)`` on the device
    engine's falcon-mamba-7b weights: a 2,048-token prefill (64
    ``selective_scan`` launches) held at phase 14's bar, then 4 greedy
    tokens equal to the device engine's; 16.c ``roofline.cim_sweep`` over
@@ -924,7 +933,8 @@ def se_launches_now(ops) -> int:
 
 def reset_launches(ops) -> None:
     ops.job_objective.launches = 0
-    for w in (*ops.KERNEL_WRAPPERS.values(), *ops.BACKWARD_WRAPPERS.values()):
+    for w in (*ops.KERNEL_WRAPPERS.values(), *ops.BACKWARD_WRAPPERS.values(),
+              *ops.OPTIMIZER_WRAPPERS.values()):
         w.launches = 0
 
 
@@ -2289,6 +2299,35 @@ TRAIN_GRAD_TOL = 0.1
 #: the resumed run's losses against the uninterrupted run's (the embedding
 #: gradient's scatter-add on the card sums in no fixed order)
 RESUME_RTOL = 1e-3
+#: 15.a: the optimizer's kernels on full-width leaf tables (arch, depth):
+#: the benchmark's two configurations at the depth that leaves room for
+#: the plain version beside them (p, g, m and v, copies of p, m and v, and
+#: one leaf's temporaries: about 30 GB for yi-6b at 2 layers)
+OPT_CASES = (("yi-6b", 2), ("falcon-mamba-7b", 2))
+#: the norm's sums of squares and the norm against the plain version's,
+#: relative (the kernels add in another order); the update is held bit
+#: for bit given the same norm
+OPT_NORM_RTOL = 1e-6
+#: the optimizer's kernels as the kernels line reports them: source, what
+#: they replace, the calls of ``OPTIMIZER_WRAPPERS`` they stand for, and
+#: the bytes a parameter each must move (the update reads g, p, m and v
+#: and writes p, m and v; the norm reads g)
+OPT_KERNELS = {
+    "adamw_apply": ("src/repro_torch/kernels/csrc/adamw.cu",
+                    "src/repro_torch/kernels/ref.py adamw_apply_ref",
+                    ("adamw_apply",), 28),
+    "adamw_norm": ("src/repro_torch/kernels/csrc/adamw.cu",
+                   "src/repro_torch/kernels/ref.py adamw_sumsq_ref + "
+                   "adamw_norm_ref", ("adamw_sumsq", "adamw_norm"), 4),
+}
+OPT_DESIGN = ("CUDA cores, multi-tensor: one table of every leaf (8 int64 "
+              "a row, uploaded from pinned memory on the stream), chunks of "
+              "65,536 elements, a block a chunk, 64-bit offsets, float4 with "
+              "a scalar tail (scalar for a misaligned leaf); the norm in two "
+              "launches of per-chunk then per-leaf sums in a fixed order "
+              "and one of the leaves in order; the update in one launch, "
+              "the plain version's fp32 operations in its order (__f*_rn, "
+              "no contraction), the clip scale read on the device")
 
 
 def check_bwd_build(build, name: str, lib: Path, report: str) -> None:
@@ -2436,6 +2475,99 @@ def measure_bwd_case(torch, ref, ops, kernel, args, kwargs, label,
                 graph_ms=g_ms, library_graph_ms=lib_g_ms)
 
 
+def optimizer_leaves(torch, arch: str, layers: int, card):
+    """(p, g, m, v, decay) of the arch's trainable tree at full width and
+    ``layers`` deep (``build_model(...).abstract_params``: the training
+    path's leaves, shapes and decay rule), on the card, seeded."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    model = build_model(cfg)
+    tree = model.abstract_params(trainable=True)
+    decay = [nd >= 2 for nd in model.reference_ndims(tree)]
+    gen = torch.Generator(card).manual_seed(0)
+    out = {k: [] for k in "pgmv"}
+    for t in tree.parameters():
+        for k, lo, hi in (("p", -0.02, 0.02), ("g", -1e-3, 1e-3),
+                          ("m", -1e-4, 1e-4), ("v", 0.0, 1e-7)):
+            out[k].append(torch.empty(t.shape, device=card).uniform_(
+                lo, hi, generator=gen))
+    return out["p"], out["g"], out["m"], out["v"], decay
+
+
+def measure_optimizer_case(torch, ops, ref, arch: str, layers: int, card,
+                           check: bool = True, loop: bool = True) -> dict:
+    """The optimizer's kernels on one leaf table (:func:`optimizer_leaves`):
+    with ``check``, the norm's sums and the norm within ``OPT_NORM_RTOL``
+    of the plain version's and one update bit-equal to the plain version's
+    on copies given the same norm; then the table's host build, the norm
+    (``adamw_sumsq`` + ``adamw_norm``) and the update (``adamw_apply``)
+    timed by CUDA events, per call and from a CUDA graph, against their
+    bounds; with ``loop``, the plain versions timed too (the per-leaf path
+    the kernels replace)."""
+    from repro_torch.optim import AdamWConfig
+
+    p, g, m, v, decay = optimizer_leaves(torch, arch, layers, card)
+    n = sum(t.numel() for t in p)
+    c = AdamWConfig()
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    sched = {"lr": f32(3e-4), "b1c": f32(0.1), "b2c": f32(0.05)}
+    hyper = dict(b1=c.b1, b2=c.b2, eps=c.eps, weight_decay=c.weight_decay,
+                 grad_clip=c.grad_clip)
+    on_card = {k: x.to(card) for k, x in sched.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = ops.adamw_table(g, p, m, v, decay)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    sums = ops.adamw_sumsq(table)
+    gnorm = ops.adamw_norm(sums)
+    rec = {"arch": arch, "layers": layers, "leaves": len(p), "params": n,
+           "table_host_ms": host_ms}
+    if check:
+        want_sums = ref.adamw_sumsq_ref(g)
+        rec["sums_rel_err"] = rel_err(sums, want_sums)
+        rec["norm_rel_err"] = rel_err(gnorm, ref.adamw_norm_ref(want_sums))
+        if max(rec["sums_rel_err"], rec["norm_rel_err"]) > OPT_NORM_RTOL:
+            fail(f"adamw {arch} depth {layers}: sums / norm relative error "
+                 f"{rec['sums_rel_err']:.3e} / {rec['norm_rel_err']:.3e} "
+                 f"breaks {OPT_NORM_RTOL}")
+        copies = [[x.clone() for x in xs] for xs in (p, m, v)]
+        ops.adamw_apply(table, gnorm, **sched, **hyper)
+        ref.adamw_apply_ref(copies[0], g, copies[1], copies[2], decay, gnorm,
+                            **on_card, **hyper)
+        torch.cuda.synchronize()
+        rec["unequal_leaves"] = sum(
+            not torch.equal(a, b) for xs, ys in zip((p, m, v), copies)
+            for a, b in zip(xs, ys))
+        if rec["unequal_leaves"]:
+            fail(f"adamw {arch} depth {layers}: {rec['unequal_leaves']} of "
+                 f"{3 * len(p)} p, m and v leaves differ from the plain "
+                 f"version given the same norm")
+        del copies, want_sums
+    norm = lambda: ops.adamw_norm(ops.adamw_sumsq(table))
+    apply = lambda: ops.adamw_apply(table, gnorm, **sched, **hyper)
+    bound = lambda name: 1e3 * OPT_KERNELS[name][3] * n / HBM_BYTES_PER_S
+    rec.update(norm_ms=timed_ms(torch, norm),
+               norm_graph_ms=graph_ms(torch, norm),
+               norm_bound_ms=bound("adamw_norm"),
+               apply_ms=timed_ms(torch, apply),
+               apply_graph_ms=graph_ms(torch, apply),
+               apply_bound_ms=bound("adamw_apply"))
+    rec["apply_share"] = rec["apply_bound_ms"] / rec["apply_ms"]
+    rec["norm_share"] = rec["norm_bound_ms"] / rec["norm_ms"]
+    if loop:
+        rec["loop_norm_ms"] = timed_ms(torch, lambda: ref.adamw_norm_ref(
+            ref.adamw_sumsq_ref(g)))
+        rec["loop_apply_ms"] = timed_ms(torch, lambda: ref.adamw_apply_ref(
+            p, g, m, v, decay, gnorm, **on_card, **hyper))
+    del p, g, m, v, table, sums, gnorm
+    torch.cuda.empty_cache()
+    return rec
+
+
 def attn_bwd_args(torch, ops, ref, rng, dev, bh, t, s, d, causal) -> tuple:
     """q, k, v, do, lse of one attention backward: bf16 inputs from
     ``rng``, lse from the forward kernel (whose output must be the same
@@ -2558,19 +2690,21 @@ def train_cli(torch, cuda: bool, configs, card: str) -> None:
 def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
                 after_cli=None) -> dict:
     """Phase 15: 15.a each backward kernel against its plain version at
-    the full-width shapes of the training path and at ragged ones, timed;
-    15.b per config of ``TRAIN_ARCHS`` (default: full width, depth
-    ``TRAIN_LAYERS``; ``configs`` maps an arch to another config) the
-    ``Trainer`` for ``TRAIN_STEPS`` steps on the synthetic stream with a
-    checkpoint every ``TRAIN_CKPT_EVERY`` (launch counts reset just before
-    and read just after), a run of ``TRAIN_CKPT_EVERY`` steps resumed by a
-    third to the end, one step of the kernel path against the plain twins
-    (and, after training, against the exact twin),
-    the kernels' share of a step and peak memory; 15.c (``train_cli``,
-    before 15.b).  Returns each backward
-    kernel's training launches and measured cases, and the forward
-    kernels' training launches.  ``after_cli`` (a callable) runs right
-    after 15.c, while this process still holds the least memory."""
+    the full-width shapes of the training path and at ragged ones, timed,
+    and on the card the optimizer's kernels on the leaf tables of
+    ``OPT_CASES`` (:func:`measure_optimizer_case`); 15.b per config of
+    ``TRAIN_ARCHS`` (default: full width, depth ``TRAIN_LAYERS``;
+    ``configs`` maps an arch to another config) the ``Trainer`` for
+    ``TRAIN_STEPS`` steps on the synthetic stream with a checkpoint every
+    ``TRAIN_CKPT_EVERY`` (launch counts reset just before and read just
+    after), a run of ``TRAIN_CKPT_EVERY`` steps resumed by a third to the
+    end, one step of the kernel path against the plain twins (and, after
+    training, against the exact twin), the kernels' share of a step and
+    peak memory; 15.c (``train_cli``, before 15.b).  Returns each backward
+    kernel's training launches and measured cases, the forward kernels'
+    and the optimizer's training launches, and the optimizer's cases.
+    ``after_cli`` (a callable) runs right after 15.c, while this process
+    still holds the least memory."""
     import dataclasses
     import functools
     import tempfile
@@ -2589,7 +2723,11 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
            for name in BWD_KERNELS}
     out["forward_launches"] = {}
     out["forward_by_arch"] = {}
-    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}
+    out["optimizer_launches"] = {k: 0 for k in ops.OPTIMIZER_WRAPPERS}
+    out["optimizer_by_arch"] = {}
+    out["optimizer"] = []
+    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS,
+                **ops.OPTIMIZER_WRAPPERS}
 
     # ---- 15.a the backward kernels against their plain versions ----------
     for bh, t, s, d, causal, what in ATTN_BWD_CASES:
@@ -2605,6 +2743,37 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
     del args
     if cuda:
         torch.cuda.empty_cache()
+        from repro_torch.kernels import adamw as aw
+        from repro_torch.kernels import build
+        # the loop names are not `arch` and `layers` (15.b's loop variable
+        # and the models module)
+        for opt_arch, opt_depth in OPT_CASES:
+            r = measure_optimizer_case(torch, ops, ref, opt_arch, opt_depth,
+                                       dev)
+            out["optimizer"].append(r)
+            print(f"[train] adamw {opt_arch} depth {opt_depth} at full width, "
+                  f"{r['leaves']} leaves, {r['params']:,} parameters: "
+                  f"update {r['apply_ms']:.4f} ms (graph "
+                  f"{r['apply_graph_ms']:.4f}), bound "
+                  f"{r['apply_bound_ms']:.4f} ms (28 B a parameter), "
+                  f"{r['apply_share']:.4f} of bound, "
+                  f"plain {r['loop_apply_ms']:.4f} ms; norm "
+                  f"{r['norm_ms']:.4f} ms (graph {r['norm_graph_ms']:.4f}), "
+                  f"bound {r['norm_bound_ms']:.4f} ms (4 B), "
+                  f"{r['norm_share']:.4f} of bound, plain "
+                  f"{r['loop_norm_ms']:.4f} ms; table built in "
+                  f"{r['table_host_ms']:.3f} ms on the host; p, m and v "
+                  f"bit-equal to the plain version given the same norm "
+                  f"({r['unequal_leaves']} leaves differ), sums / norm "
+                  f"relative error {r['sums_rel_err']:.3e} / "
+                  f"{r['norm_rel_err']:.3e} (bar {OPT_NORM_RTOL}); {card}",
+                  flush=True)
+        ptx = ptxas_table(build.ptxas_report(aw.SOURCE, aw.NVCC_FLAGS))
+        print("[build] adamw: " + ", ".join(
+            f"{k} {regs} registers, spills {st}/{ld} bytes"
+            for k, regs, st, ld in ptx), flush=True)
+        if any(st or ld for _, _, st, ld in ptx):
+            fail("adamw: a kernel spills registers")
         print(f"[train] after 15.a this process holds "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of it in live "
@@ -2696,13 +2865,25 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
         want = {k: 0 for k in launches}
         want[kernel] = 2 * cfg.n_layers * TRAIN_STEPS     # forward + remat
         want[bwd] = cfg.n_layers * TRAIN_STEPS
+        # the optimizer: the norm's three launches and the update's one
+        want.update(adamw_sumsq=2 * TRAIN_STEPS, adamw_norm=TRAIN_STEPS,
+                    adamw_apply=TRAIN_STEPS)
         if launches != want:
             fail(f"{arch} 15.b: launches {launches}, expected {want}")
+        taken = (ops.adamw_apply.leaves, ops.adamw_apply.elements)
+        if taken != (len(list(params.parameters())),
+                     sum(p.numel() for p in params.parameters())):
+            fail(f"{arch} 15.b: the last update took {taken} (leaves, "
+                 f"elements) of the trainer's parameters")
         out[bwd]["launches"] += launches[bwd]
         out[bwd]["by_arch"][arch] = launches[bwd]
         out["forward_launches"][kernel] = \
             out["forward_launches"].get(kernel, 0) + launches[kernel]
         out["forward_by_arch"][arch] = {kernel: launches[kernel]}
+        out["optimizer_by_arch"][arch] = {
+            k: launches[k] for k in ops.OPTIMIZER_WRAPPERS}
+        for k in ops.OPTIMIZER_WRAPPERS:
+            out["optimizer_launches"][k] += launches[k]
         hist = full.history
         losses = [r["loss"] for r in hist]
         if not all(math.isfinite(x) for x in losses) or \
@@ -2796,8 +2977,9 @@ def phase_train(torch, ops, ref, dev, card, configs=None, rng=None,
               f"{[round(x, 4) for x in losses]}; sec_per_step {sec:.4f} "
               f"(median of steps 2-{TRAIN_STEPS}), {t_len / sec:.1f} tokens/s; "
               f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
-              f" = {2 * cfg.n_layers} {kernel} (forward + remat) and "
-              f"{cfg.n_layers} {bwd} a step; peak memory {peak:.2f} GiB; "
+              f" = {2 * cfg.n_layers} {kernel} (forward + remat), "
+              f"{cfg.n_layers} {bwd} and 4 adamw (every leaf in the last "
+              f"update's table) a step; peak memory {peak:.2f} GiB; "
               f"{card}", flush=True)
         kernels_text = (
             ", ".join(f"{k} {v:.1f} ms" for k, v in kernel_ms.items())
@@ -2965,7 +3147,8 @@ def shard_train(torch, ops, dev, card, configs=None) -> dict:
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS}
+    wrappers = {**ops.KERNEL_WRAPPERS, **ops.BACKWARD_WRAPPERS,
+                **ops.OPTIMIZER_WRAPPERS}
     counts = lambda: {k: w.launches for k, w in wrappers.items()}
     mesh = make_debug_mesh(1, 1, device_type=dev.type)
     arch, t_len, depth = SHARD_TRAIN
@@ -3015,6 +3198,8 @@ def shard_train(torch, ops, dev, card, configs=None) -> dict:
         want = {k: 0 for k in launches}
         want["flash_attention"] = 2 * cfg.n_layers * SHARD_STEPS
         want["flash_attention_bwd"] = cfg.n_layers * SHARD_STEPS
+        want.update(adamw_sumsq=2 * SHARD_STEPS, adamw_norm=SHARD_STEPS,
+                    adamw_apply=SHARD_STEPS)
         if cuda and launches != want:
             fail(f"16.a {name}: launches {launches}, expected {want}")
         del params, opt, batch, metrics
@@ -3992,6 +4177,32 @@ def main() -> None:
                     "src/repro/models/ssm.py:96-132)",
             "design": BWD_DESIGNS[name], "shape": first["label"],
             "cases": train[name]["cases"]})
+    for name, (source, replaces, calls, nbytes) in OPT_KERNELS.items():
+        # the training path's launches (15.b, 16.a); 15.a's yi-6b table
+        first = train["optimizer"][0]
+        key = name.split("_")[1]
+        count = lambda n: sum(n[k] for k in calls)
+        new_lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": count(train["optimizer_launches"]) + count(shard_n),
+            "launches_by_arch": {arch: count(n) for arch, n in
+                                 train["optimizer_by_arch"].items()},
+            "sharded_launches": count(shard_n),
+            "max_abs_err": 0.0 if key == "apply" else None,
+            "max_rel_err": first["norm_rel_err"] if key == "norm" else 0.0,
+            "ms": first[f"{key}_ms"], "graph_ms": first[f"{key}_graph_ms"],
+            "plain_ms": first[f"loop_{key}_ms"],
+            "bound_ms": first[f"{key}_bound_ms"],
+            "bound_by": f"bytes ({nbytes} B a parameter)",
+            "library_ms": None,
+            "note": "no TPU counterpart: the reference's optimizer is jnp "
+                    "(src/repro/optim/adamw.py)",
+            "design": OPT_DESIGN,
+            "shape": f"{first['arch']} depth {first['layers']} at full "
+                     f"width: {first['leaves']} leaves, {first['params']} "
+                     f"parameters",
+            "cases": train["optimizer"]})
     print(json.dumps({"kernels": [{
         "name": "strategy_eval", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,

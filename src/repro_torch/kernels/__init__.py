@@ -7,7 +7,10 @@ PyTorch versions.
   ``csrc/cim_matmul.cu``;
 * ``flash_attention`` -- streaming-softmax attention,
   ``csrc/flash_attention.cu``;
-* ``selective_scan`` -- the Mamba-1 recurrence, ``csrc/selective_scan.cu``.
+* ``selective_scan`` -- the Mamba-1 recurrence, ``csrc/selective_scan.cu``;
+* ``adamw`` -- AdamW's clip norm and update over every leaf of a training
+  step, ``csrc/adamw.cu`` (no TPU counterpart: the reference's optimizer
+  is jnp).
 
 Each is CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use by
 ``build.py`` and bound with ``ctypes`` (one module per kernel).

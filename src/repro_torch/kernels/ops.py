@@ -19,6 +19,13 @@ kernels (:data:`BACKWARD_WRAPPERS`), and :class:`FlashAttention` and
 :class:`SelectiveScan` are the ``torch.autograd.Function``s whose forward
 and backward launch the kernels on the card (and run the plain versions,
 the backward by autograd of them, on the CPU).
+
+The optimizer's step runs through :func:`adamw_table`, :func:`adamw_sumsq`,
+:func:`adamw_norm` and :func:`adamw_apply` (:data:`OPTIMIZER_WRAPPERS`):
+the multi-tensor kernels of ``csrc/adamw.cu`` over a table of every leaf.
+Their counters count kernel launches (two a ``adamw_sumsq`` call);
+``adamw_apply.leaves`` and ``.elements`` are the leaves and elements its
+last launch updated.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from repro_torch.core import cost_model
 from repro_torch.core.cost_model import JobParams
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import cim_matmul as _cm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
@@ -38,10 +46,12 @@ from repro_torch.kernels import strategy_eval as _se
 from repro_torch.obs import profile as _profile
 
 
-def _route(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel route for device {t.device}")
-    return t.device.type
+def _route(t) -> str:
+    """"cpu" or "cuda": the route of a tensor, or of a device."""
+    dev = t if isinstance(t, torch.device) else t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel route for device {dev}")
+    return dev.type
 
 
 def job_objective(job: JobParams, cand: torch.Tensor,
@@ -168,6 +178,62 @@ flash_attention_bwd.launches = 0
 selective_scan_bwd.launches = 0
 
 
+def adamw_table(grads, params=None, ms=None, vs=None, decay=None):
+    """The leaves of one optimizer step (plain tensors: a DTensor's local
+    shard) for :func:`adamw_sumsq` (``grads`` alone) and
+    :func:`adamw_apply` (all of them, ``decay`` a flag a leaf): on the card
+    their table, on the device without a synchronous copy."""
+    return _aw.LeafTable(grads, params, ms, vs, decay)
+
+
+def adamw_sumsq(table) -> torch.Tensor:
+    """Each leaf's fp32 sum of squares of its gradient, [L]; on the card
+    two launches (each chunk's partial sum, then each leaf's partials in a
+    fixed order)."""
+    if _route(table.device) == "cpu":
+        return ref.adamw_sumsq_ref(table.grads)
+    sums, launches = _aw.sumsq(table)
+    adamw_sumsq.launches += launches
+    return sums
+
+
+def adamw_norm(sums: torch.Tensor) -> torch.Tensor:
+    """sqrt of the leaves' sums added in leaf order, 0-dim fp32."""
+    if _route(sums) == "cpu":
+        return ref.adamw_norm_ref(sums)
+    out = _aw.norm(sums)
+    adamw_norm.launches += 1
+    return out
+
+
+def adamw_apply(table, gnorm: torch.Tensor, *, lr: torch.Tensor,
+                b1c: torch.Tensor, b2c: torch.Tensor, b1: float, b2: float,
+                eps: float, weight_decay: float, grad_clip: float) -> None:
+    """AdamW's clipped update of every leaf of ``table``, in place: the
+    clip scale from the global norm ``gnorm`` (read on the device), then
+    each element in the reference's order of fp32 operations; decay where
+    the table's flag is set.  ``lr``, ``b1c`` and ``b2c`` are the step's
+    0-dim fp32 tensors on the host.  On the card one launch, bit-equal to
+    the plain version given the same norm."""
+    if _route(gnorm) == "cpu":
+        ref.adamw_apply_ref(table.params, table.grads, table.ms, table.vs,
+                            table.decay, gnorm, lr=lr, b1c=b1c, b2c=b2c,
+                            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                            grad_clip=grad_clip)
+        return
+    scalars = _aw.hyper(lr=float(lr), b1c=float(b1c), b2c=float(b2c), b1=b1,
+                        b2=b2, eps=eps, weight_decay=weight_decay,
+                        grad_clip=grad_clip)
+    adamw_apply.launches += _aw.apply(table, gnorm, scalars)
+    adamw_apply.leaves = table.leaves
+    adamw_apply.elements = table.elements
+
+
+for _wrapper in (adamw_sumsq, adamw_norm, adamw_apply):
+    _wrapper.launches = 0
+adamw_apply.leaves = adamw_apply.elements = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable :func:`flash_attention` (``q`` [BH, T, d], ``k``,
     ``v`` [BH, S, d]): the forward kernel, which also writes the rows'
@@ -244,3 +310,6 @@ KERNEL_WRAPPERS = {"cim_matmul": cim_matmul,
 #: the wrappers of the backward kernels (the training path's)
 BACKWARD_WRAPPERS = {"flash_attention_bwd": flash_attention_bwd,
                      "selective_scan_bwd": selective_scan_bwd}
+#: the wrappers of the optimizer's kernels (the training path's)
+OPTIMIZER_WRAPPERS = {"adamw_sumsq": adamw_sumsq, "adamw_norm": adamw_norm,
+                      "adamw_apply": adamw_apply}

@@ -143,3 +143,37 @@ def selective_scan_bwd_ref(xi, dt, bmat, cmat, a, h0, dy, dh_last):
     plain version (the ``selective_scan_bwd`` kernel's function)."""
     return _vjp(selective_scan_ref, (xi, dt, bmat, cmat, a, h0),
                 (dy, dh_last))
+
+
+def adamw_sumsq_ref(grads) -> torch.Tensor:
+    """Each leaf's fp32 sum of squares, [L] (the ``adamw`` kernels' norm
+    pass)."""
+    return torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+
+
+def adamw_norm_ref(sums: torch.Tensor) -> torch.Tensor:
+    """sqrt of the leaves' sums added in leaf order (Python's ``sum``,
+    from 0)."""
+    return torch.sqrt(sum(sums.unbind()))
+
+
+def adamw_apply_ref(params, grads, ms, vs, decay, gnorm, *, lr, b1c, b2c,
+                    b1: float, b2: float, eps: float, weight_decay: float,
+                    grad_clip: float) -> None:
+    """AdamW's clipped update, leaf by leaf, in place (the ``adamw``
+    kernel's function): the clip scale from the global norm ``gnorm``, then
+    each leaf in the reference's order, every operation one fp32 kernel;
+    ``decay`` a flag a leaf, ``lr``, ``b1c`` and ``b2c`` 0-dim fp32
+    tensors.  The transient memory is one leaf's."""
+    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    for p, g, m, v, d in zip(params, grads, ms, vs, decay):
+        g = g.float() * scale
+        # the reference's order: b1 m + ((1 - b1) g),
+        # b2 v + ((1 - b2) g) g
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_((g * (1 - b2)).mul_(g))
+        upd = (m / b1c).div_(torch.sqrt(v / b2c).add_(eps))
+        if d:                          # no decay on norms / biases
+            upd.add_(weight_decay * p.float())
+        p.copy_(p.float() - lr * upd)
+        del g, upd

@@ -3,19 +3,26 @@ reference's ``optim/adamw.py`` in PyTorch.
 
 The state holds fp32 moments ``m`` and ``v``, one per parameter in the
 order of ``params.parameters()`` (a ``ParamTree`` or any module), and the
-step count.  ``update`` changes the parameters and moments in place, one
-leaf at a time (so the transient memory is one leaf's, not the model's),
-and keeps the reference's arithmetic: the step
+step count.  ``update`` changes the parameters and moments in place and
+keeps the reference's arithmetic: the step
 counts from 1, the clip and the update run in fp32, bias correction, no
 decay on leaves of fewer than 2 dims -- counted in the reference's pytree
 when the caller passes ``ndims`` (``Model.reference_ndims``: the
 reference stacks the layers of its scanned groups [G, ...], so their
-norms and biases have 2 dims there and are decayed).  The schedule, the
-norm and the clip scale stay on the parameters' device as 0-dim fp32
-tensors; only ``skip_nonfinite`` reads the norm on the host.  ``update``
-runs its phases in ``obs`` spans: ``optim.schedule`` (the lr and the bias
-corrections, made on the host and copied), ``optim.norm``, ``optim.guard``
-(that read) and ``optim.apply`` (the per-leaf loop).
+norms and biases have 2 dims there and are decayed).  The lr and the bias
+corrections are fp32 numbers made on the host; the norm and the clip
+scale stay on the parameters' device; only ``skip_nonfinite`` reads the
+norm on the host.  ``update`` runs its phases in ``obs`` spans:
+``optim.schedule`` (the lr and the bias corrections), ``optim.norm``,
+``optim.guard`` (that read) and ``optim.apply``.
+
+The step's leaves go into one table (``kernels.ops.adamw_table``), and
+the norm and the update run through ``kernels.ops``: on the card the
+hand-written multi-tensor kernels of ``kernels/csrc/adamw.cu`` take every
+leaf at once, the norm in three launches and the update in one, reading
+g, p, m and v once and writing p, m and v once; on the CPU their plain
+versions (``kernels/ref.py``) take it leaf by leaf, with the same fp32
+operations in the same order (bit-equal given the same norm).
 
 DTensor parameters (a ``DeviceMesh`` cell) are updated on their local
 shards: the update is elementwise, so each rank's shard of the parameter,
@@ -31,6 +38,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import ops
 from repro_torch.obs.trace import span
 
 
@@ -79,29 +87,42 @@ def _local(x: torch.Tensor) -> torch.Tensor:
     return x.to_local() if _is_dtensor(x) else x
 
 
-def leaf_sumsq(grads) -> list[torch.Tensor]:
-    """Each leaf's fp32 sum of squares; for a DTensor leaf its shards'
-    local sums added over the mesh dims that shard it (one all-reduce per
-    such set of dims for all the leaves that share it)."""
-    sums = [torch.sum(torch.square(_local(g).float())) for g in grads]
+def _on(idx: list, device) -> torch.Tensor:
+    """Leaf indices as a tensor on ``device``, through pinned memory on the
+    card (no synchronous copy)."""
+    at = torch.tensor(idx, dtype=torch.long)
+    if device.type == "cuda":
+        return at.pin_memory().to(device, non_blocking=True)
+    return at
+
+
+def leaf_sumsq(grads, table=None) -> torch.Tensor:
+    """Each leaf's fp32 sum of squares, one a leaf in a 1-D tensor (the
+    ``adamw_sumsq`` kernels over ``table`` on the card, or over a table of
+    the gradients); for a DTensor leaf its shards' local sums added over
+    the mesh dims that shard it (one all-reduce per such set of dims for
+    all the leaves that share it)."""
+    if table is None:
+        table = ops.adamw_table([_local(g) for g in grads])
+    sums = ops.adamw_sumsq(table)
     groups: dict = {}
     for i, g in enumerate(grads):
         dims = _shard_dims(g)
         if dims:
             groups.setdefault((g.device_mesh, dims), []).append(i)
     for (mesh, dims), idx in groups.items():
-        vec = torch.stack([sums[i] for i in idx])
+        at = _on(idx, sums.device)
+        vec = sums.index_select(0, at)
         for d in dims:
             dist.all_reduce(vec, group=mesh.get_group(d))
-        for j, i in enumerate(idx):
-            sums[i] = vec[j]
+        sums.index_copy_(0, at, vec)
     return sums
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, table=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of
-    squares."""
-    return torch.sqrt(sum(leaf_sumsq(grads)))
+    squares, on the leaves' device."""
+    return ops.adamw_norm(leaf_sumsq(grads, table))
 
 
 def _locals(p, *others) -> tuple:
@@ -137,23 +158,26 @@ class AdamW:
         ``grads`` lists one gradient per parameter (None counts as zeros);
         ``ndims`` each leaf's dims for the decay rule (default its own).
         With ``skip_nonfinite``, a non-finite gradient norm changes
-        nothing and ``stats["skipped"]`` is True."""
+        nothing and ``stats["skipped"]`` is True.  ``stats["lr"]`` is a
+        0-dim fp32 tensor on the host."""
         c = self.config
         leaves = list(params.parameters())
         ndims = ndims or [p.dim() for p in leaves]
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        dev = leaves[0].device
         step = state["step"] + 1
         with span("optim.schedule"):
             lr = cosine_schedule(step, peak_lr=c.peak_lr,
-                                 warmup=c.warmup_steps,
-                                 total=c.total_steps).to(dev)
+                                 warmup=c.warmup_steps, total=c.total_steps)
             f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-            b1c = (1.0 - f32(c.b1) ** f32(step)).to(dev)
-            b2c = (1.0 - f32(c.b2) ** f32(step)).to(dev)
+            b1c = 1.0 - f32(c.b1) ** f32(step)
+            b2c = 1.0 - f32(c.b2) ** f32(step)
         with span("optim.norm"):
-            gnorm = global_norm(grads)
+            p_, g_, m_, v_ = zip(*(_locals(*x) for x in zip(
+                leaves, grads, state["m"], state["v"])))
+            table = ops.adamw_table(g_, p_, m_, v_,
+                                    [nd >= 2 for nd in ndims])
+            gnorm = global_norm(grads, table)
         stats = {"grad_norm": gnorm, "lr": lr}
         if skip_nonfinite:
             with span("optim.guard"):
@@ -161,20 +185,8 @@ class AdamW:
             if stats["skipped"]:
                 return params, state, stats
         with span("optim.apply"):
-            scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
-                                max=1.0)
-            for p, g, m, v, nd in zip(leaves, grads, state["m"], state["v"],
-                                      ndims):
-                p, g, m, v = _locals(p, g, m, v)
-                g = g.float() * scale
-                # the reference's order: b1 m + ((1 - b1) g),
-                # b2 v + ((1 - b2) g) g
-                m.mul_(c.b1).add_(g * (1 - c.b1))
-                v.mul_(c.b2).add_((g * (1 - c.b2)).mul_(g))
-                upd = (m / b1c).div_(torch.sqrt(v / b2c).add_(c.eps))
-                if nd >= 2:                    # no decay on norms / biases
-                    upd.add_(c.weight_decay * p.float())
-                p.copy_(p.float() - lr * upd)
-                del g, upd
+            ops.adamw_apply(table, gnorm, lr=lr, b1c=b1c, b2c=b2c, b1=c.b1,
+                            b2=c.b2, eps=c.eps, weight_decay=c.weight_decay,
+                            grad_clip=c.grad_clip)
         state["step"] = step
         return params, state, stats

@@ -10,7 +10,7 @@ import pytest
 from repro_torch.kernels import build
 
 SOURCES = ("cim_matmul.cu", "flash_attention.cu", "selective_scan.cu",
-           "strategy_eval.cu")
+           "strategy_eval.cu", "adamw.cu")
 
 
 @pytest.fixture
