@@ -58,8 +58,27 @@ class ArchConfig:
     tie_embeddings: bool = False
     emb_scale: bool = False        # gemma: embed * sqrt(d)
     # MoE
-    n_experts: int = 0
+    n_experts: int = 0             # routed experts held here
     moe_top_k: int = 0
+    # expert parallelism and DeepSeek-style MoE layers (0 / defaults: off)
+    router_experts: int = 0        # experts the router scores (0: n_experts)
+    expert_offset: int = 0         # the first routed expert held here
+    shared_d_ff: int = 0           # shared experts' SwiGLU width
+    dense_d_ff: int = 0            # leading dense layers' MLP width (0: d_ff)
+    moe_aux_coef: float = 0.01     # load-balancing loss weight
+    # latent attention (MLA); a width of 0 means no MLA
+    kv_lora_rank: int = 0          # the key/value latent's width
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rotary scaling of the rope part (factor 0: none); one mscale for
+    # the attention scale and the rope (DeepSeek's two are equal, so cos and
+    # sin are unscaled)
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 0.0       # mscale_all_dim: m = 0.1 mscale ln(factor) + 1
     # SSM (mamba)
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -111,6 +130,13 @@ class ArchConfig:
         if kind == "moe":
             return attn + d * self.n_experts + \
                 self.n_experts * self._ffn_params()
+        if kind == "mla_dense":
+            return self._mla_params() + self._ffn_params(
+                self.dense_d_ff or self.d_ff)
+        if kind == "mla_moe":
+            return (self._mla_params() + d * self.n_routed
+                    + self.n_experts * self._ffn_params()
+                    + self._ffn_params(self.shared_d_ff))
         if kind == "mamba":
             i = self.d_inner
             return (d * 2 * i + i * (self.dt_rank + 2 * self.ssm_state)
@@ -141,18 +167,42 @@ class ArchConfig:
             n += self.encoder_layers * self._layer_params("enc_self")
         return n
 
-    def _ffn_params(self) -> int:
+    def _ffn_params(self, d_ff: int | None = None) -> int:
         gated = self.mlp_act in ("swiglu", "geglu")
-        return self.d_model * self.d_ff * (3 if gated else 2)
+        d_ff = self.d_ff if d_ff is None else d_ff
+        return self.d_model * d_ff * (3 if gated else 2)
+
+    @property
+    def n_routed(self) -> int:
+        """The experts the router scores: all of the layer's, of which
+        this chip holds ``n_experts`` from ``expert_offset`` on."""
+        return self.router_experts or self.n_experts
+
+    @property
+    def qk_head_dim(self) -> int:
+        """MLA's query and key width: the no-rope and the rope parts."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def _mla_params(self) -> int:
+        """MLA's matrices (no norms): W_q, W_kva (latent and shared rope
+        key), W_kvb (each head's key and value from the latent), W_o."""
+        d, h, r = self.d_model, self.n_heads, self.kv_lora_rank
+        return (d * h * self.qk_head_dim + d * (r + self.qk_rope_head_dim)
+                + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                + h * self.v_head_dim * d)
 
     def active_params_estimate(self) -> int:
-        """MoE: only top-k experts count toward MODEL_FLOPS."""
+        """MoE: only the experts a token is routed to count toward
+        MODEL_FLOPS (with experts held here out of more routed, the top-k
+        at the held share)."""
         if not self.n_experts:
             return self.params_estimate()
         full = self.params_estimate()
-        inactive = (self.n_experts - self.moe_top_k) * self._ffn_params() \
-            * self.n_layers
-        return full - inactive
+        layers = sum(c for k, c in self._layer_counts().items()
+                     if k in ("moe", "mla_moe"))
+        active = self.moe_top_k * self.n_experts / self.n_routed
+        return full - round((self.n_experts - active) * self._ffn_params()
+                            * layers)
 
     # ------------------------------------------------------------------ #
     def reduced(self) -> "ArchConfig":
@@ -170,6 +220,13 @@ class ArchConfig:
             vocab=512,
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             moe_top_k=min(self.moe_top_k, 2) if self.moe_top_k else 0,
+            router_experts=min(self.router_experts, 8),
+            shared_d_ff=min(self.shared_d_ff, 128),
+            dense_d_ff=min(self.dense_d_ff, 128),
+            kv_lora_rank=min(self.kv_lora_rank, 32),
+            qk_nope_head_dim=min(self.qk_nope_head_dim, 16),
+            qk_rope_head_dim=min(self.qk_rope_head_dim, 8),
+            v_head_dim=min(self.v_head_dim, 16),
             ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
             d_inner=128 if self.d_inner else 0,
             dt_rank=8 if self.dt_rank else 0,
@@ -238,7 +295,37 @@ class ArchConfig:
             return transformer_layer_ops(
                 d_ff=self.d_ff, window=self.window,
                 cross_attn_src=self.n_memory or 1500, **common)
+        if kind in ("mla_dense", "mla_moe"):
+            return self._mla_ops(kind, seq)
         raise ValueError(f"unknown block kind {kind}")
+
+    def _mla_ops(self, kind: str, seq: int) -> list[MatmulOp]:
+        """An MLA layer's products: the query, latent and per-head key /
+        value projections, scores at the query/key width, context at the
+        value width, the output; then the dense MLP, or the router, the
+        routed experts (top-k a token, over the whole deployment) and the
+        shared experts."""
+        d, h, r = self.d_model, self.n_heads, self.kv_lora_rank
+        dqk, dv = self.qk_head_dim, self.v_head_dim
+        ops = [MatmulOp(seq, d, h * dqk, name="q_proj"),
+               MatmulOp(seq, d, r + self.qk_rope_head_dim, name="kv_a_proj"),
+               MatmulOp(seq, r, h * (self.qk_nope_head_dim + dv),
+                        name="kv_b_proj"),
+               MatmulOp(seq, h * dv, d, name="o_proj"),
+               MatmulOp(seq, dqk, seq, count=h, weights_static=False,
+                        name="attn_score"),
+               MatmulOp(seq, seq, dv, count=h, weights_static=False,
+                        name="attn_ctx")]
+        ffn = lambda f, n, k=1: [
+            MatmulOp(seq, d, f, count=2 * k, name=f"{n}_up"),
+            MatmulOp(seq, f, d, count=k, name=f"{n}_down")]
+        if kind == "mla_dense":
+            return ops + ffn(self.dense_d_ff or self.d_ff, "ffn")
+        ops.append(MatmulOp(seq, d, self.n_routed, name="router"))
+        ops += ffn(self.d_ff, "moe", self.moe_top_k)
+        if self.shared_d_ff:
+            ops += ffn(self.shared_d_ff, "shared")
+        return ops
 
 
 # ---------------------------------------------------------------------- #
@@ -261,12 +348,17 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b",
     "mixtral-8x7b": "mixtral_8x7b",
     "whisper-small": "whisper_small",
+    # port-only: the benchmark's latent-attention MoE configuration; not in
+    # ARCH_IDS, which lists the reference's ten, whose JAX package has no
+    # MLA block to hold the port against
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{tuple(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
 

@@ -25,8 +25,6 @@ from repro_torch.models.layers import COMPUTE_DTYPE, ShapeOnly, flash_prefill
 from repro_torch.models.sharding import Identity, is_dtensor
 from repro_torch.obs.trace import span
 
-MOE_AUX_COEF = 0.01
-
 
 class Model:
     """The functions of one architecture over its parameters (a
@@ -118,7 +116,8 @@ class Model:
         with span("model.loss"):
             l, metrics = tf.lm_loss(logits, batch["labels"])
         if self.cfg.n_experts:
-            l = l + MOE_AUX_COEF * aux
+            if self.cfg.moe_aux_coef:
+                l = l + self.cfg.moe_aux_coef * aux
             metrics = dict(metrics, moe_aux=aux)
         return l, metrics
 

@@ -7,6 +7,13 @@ back with router weights.  Choices past an expert's capacity are dropped
 in token order (the residual path carries them).  The top-k keeps
 ``jax.lax.top_k``'s order, ties to the lower expert index, so each
 expert sees the reference's tokens.
+
+:func:`moe_apply_held` is the port's own layer for one chip's share of an
+expert-parallel deployment (DeepSeek-V2's MoE): the router scores all of
+the layer's experts, the chip holds a run of them, and only the (token,
+choice) pairs that land on those are computed, grouped by expert in a
+product whose bounds stay on the card, with none dropped; shared experts
+see every token.
 """
 from __future__ import annotations
 
@@ -15,17 +22,30 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DTYPE, dense_init, gelu, normal, silu
+from repro_torch.models.layers import (COMPUTE_DTYPE, dense_init, gelu,
+                                       mlp_apply, normal, silu)
 from repro_torch.models import sharding as sh
 from repro_torch.models.sharding import Identity
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs.trace import span
+
+#: (token, choice) pairs routed to each held expert in forward passes, by
+#: its index among the router's experts; counted on the card and added
+#: here by :func:`flush_expert_pairs`
+EXPERT_PAIRS = _metrics.registry().counter(
+    "cim_moe_expert_pairs_total",
+    "Routed (token, choice) pairs computed by each held expert",
+    ("expert",))
 
 
 def moe_params(gen, d_model: int, d_ff: int, n_experts: int,
-               gated: bool = True) -> dict:
+               gated: bool = True, n_routed: int | None = None) -> dict:
+    """The router [D, n_routed] (``n_experts`` where None) and the
+    ``n_experts`` experts held here."""
     s_in = 1.0 / math.sqrt(d_model)
     s_ff = 1.0 / math.sqrt(d_ff)
     p = {
-        "router": dense_init(gen, d_model, n_experts),
+        "router": dense_init(gen, d_model, n_routed or n_experts),
         "w_up": normal(gen, (n_experts, d_model, d_ff), s_in),
         "w_down": normal(gen, (n_experts, d_ff, d_model), s_ff),
     }
@@ -41,12 +61,24 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _gates(logits: torch.Tensor, top: int):
+def _gates(logits: torch.Tensor, top: int, renorm: bool = True):
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, top)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    if renorm:
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                            min=1e-9)
     return probs, gate_vals, gate_idx
+
+
+def _balance_loss(probs: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """Switch-style load balance over ``probs`` [N, E] and each token's
+    first choice ``first`` [N]."""
+    n_exp = probs.shape[-1]
+    # each expert's share of first choices, counted without ``one_hot``'s
+    # range check, which reads the data on the host
+    ce = probs.new_zeros(n_exp).scatter_add_(
+        0, first, probs.new_ones(first.shape)) / first.numel()
+    return n_exp * torch.sum(probs.mean(dim=0) * ce)
 
 
 def dispatch(gate_idx: torch.Tensor, n_exp: int, capacity: int):
@@ -103,11 +135,7 @@ def moe_apply(
 
     logits = xt.float() @ p["router"].float()
     probs, gate_vals, gate_idx = _gates(logits, top_k)      # [T, k]
-
-    # load-balancing aux loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(gate_idx[:, 0], n_exp).float().mean(dim=0)
-    aux = n_exp * torch.sum(me * ce)
+    aux = _balance_loss(probs, gate_idx[:, 0])
 
     # capacity floor keeps small token counts fully dropless
     capacity = max(int(capacity_factor * tokens * top_k / n_exp),
@@ -185,3 +213,121 @@ def moe_apply_row(
     w = (gate_vals.reshape(b, t * top_k) * keep).to(gathered.dtype)
     y = (gathered * w[..., None]).reshape(b, t, top_k, d).sum(dim=2)
     return y.to(x.dtype), aux
+
+
+#: each held expert's rows are padded to a multiple of this with one zero
+#: row at least (the grouped product's alignment)
+ALIGN = 16
+
+
+def _layout(gate_idx: torch.Tensor, n_held: int, offset: int, n_tok: int):
+    """Where each (token, choice) pair of ``gate_idx`` [N, k] goes in the
+    held experts' grouped rows, all on the device and of static shape.
+
+    The pairs on held experts are sorted by expert (stable: token order
+    within one); expert e's run takes rows ``ends[e] - padded[e]`` on,
+    padded to a multiple of :data:`ALIGN` with one row at least.  Returns
+    (src [R]: the token each row reads; valid [R]: whether it holds a
+    pair; pos [N * k]: the row each pair's output is read from; held
+    [N * k]; ends [n_held] int32, the groups' ends; sizes [n_held], their
+    pairs).  R, ``N * min(k, n_held)`` pairs and the padding, bounds every
+    routing, so none is dropped.  The rows that hold no pair read, and the
+    pairs on no held expert are read from, rows spread over the tokens
+    and the computed rows: no row gathers or scatters the gradients of
+    many (an index's backward takes its repeats one by one)."""
+    n_pairs = gate_idx.numel()
+    dev = gate_idx.device
+    local = gate_idx.reshape(-1) - offset
+    held = (local >= 0) & (local < n_held)
+    run, order = torch.sort(torch.where(held, local, n_held), stable=True)
+    starts = torch.searchsorted(
+        run, torch.arange(n_held + 1, device=dev, dtype=run.dtype))
+    sizes = starts[1:] - starts[:-1]
+    padded = (sizes // ALIGN + 1) * ALIGN
+    ends = torch.cumsum(padded, 0)
+    expert = run.clamp(max=n_held - 1)
+    rank = torch.arange(n_pairs, device=dev)
+    slot = rank - starts[expert] + (ends - padded)[expert]
+    n_rows = gate_idx.shape[0] * min(gate_idx.shape[1], n_held) \
+        + ALIGN * n_held
+    held_sorted = run < n_held
+    dest = torch.where(held_sorted, slot, n_rows)
+    src = torch.arange(n_rows + 1, device=dev) % n_tok
+    src.scatter_(0, dest, order // gate_idx.shape[1])
+    valid = torch.zeros(n_rows + 1, dtype=torch.bool, device=dev)
+    valid.scatter_(0, dest, held_sorted)
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.where(held_sorted, slot, rank % ends[-1]))
+    return src[:n_rows], valid[:n_rows], pos, held, ends.to(torch.int32), \
+        sizes
+
+
+#: (token, choice) pairs routed to each held expert that the card has
+#: counted and the counter not yet taken, by (offset, device)
+_PENDING: dict[tuple, torch.Tensor] = {}
+
+
+def flush_expert_pairs() -> None:
+    """Add the card's pending counts to :data:`EXPERT_PAIRS`; this reads
+    them on the host, so a reader calls it, never the step."""
+    while _PENDING:
+        (offset, _), counts = _PENDING.popitem()
+        for e, n in enumerate(counts.tolist()):
+            EXPERT_PAIRS.inc(n, expert=str(offset + e))
+
+
+def moe_apply_held(
+    p,
+    x: torch.Tensor,              # [B, T, D]
+    *,
+    top_k: int,
+    offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chip's share of an expert-parallel MoE layer of SwiGLU experts,
+    dropless, as DeepSeek-V2's: the top-k gates are the softmax's values,
+    not renormalised.
+
+    The router ``p["router"]`` [D, E] scores all E experts; this chip
+    holds ``p["w_*"]`` [n, ...], experts ``offset`` to ``offset + n - 1``.
+    The rows of the pairs on held experts are gathered grouped by expert
+    (:func:`_layout`), each group multiplied by its expert's weights in
+    one grouped product whose bounds stay on the card, and the outputs
+    weighted by the gate and summed back per token in fp32.  Nothing is
+    read on the host, however unevenly the pairs fall; every pair is
+    computed.  ``p["shared"]``, where present, is a SwiGLU every token
+    passes through, added to the routed sum.  Returns (output [B, T, D],
+    the Switch-style balance loss over all E experts).
+    """
+    b, t, d = x.shape
+    n_held = p["w_up"].shape[0]
+    xt = x.reshape(b * t, d)
+    cd = COMPUTE_DTYPE
+    with span("moe.route"):
+        logits = xt.float() @ p["router"].float()
+        probs, gate_vals, gate_idx = _gates(logits, top_k, renorm=False)
+        aux = _balance_loss(probs, gate_idx[:, 0])
+    with span("moe.shared"):
+        shared = mlp_apply(p["shared"], x, "swiglu") if "shared" in p \
+            else None
+    with span("moe.dispatch"):
+        src, valid, pos, held, ends, sizes = _layout(gate_idx, n_held,
+                                                     offset, b * t)
+        if torch._C._current_graph_task_id() == -1:   # not the recompute
+            key = (offset, x.device)
+            _PENDING[key] = _PENDING.get(key, 0) + sizes
+        # a row that holds no pair is zero, and its gradient (past the last
+        # group's end the grouped product's is left unwritten) goes nowhere
+        rows = torch.where(valid[:, None], xt.to(cd)[src], 0)
+    with span("moe.experts"):
+        # group e's rows times expert e's weights, the groups' ends read on
+        # the card; rows past the last end are left unwritten
+        gmm = lambda a, w: torch._grouped_mm(a, w.to(cd), offs=ends)
+        h = F.silu(gmm(rows, p["w_gate"])) * gmm(rows, p["w_up"])
+        out = gmm(h, p["w_down"])
+    with span("moe.combine"):
+        gate = torch.where(held, gate_vals.reshape(-1), 0.0)
+        y = (out[pos] * gate[:, None]).reshape(b * t, top_k, d).sum(1)
+        y = y.reshape(b, t, d).to(x.dtype)
+        if shared is not None:
+            y = shared + y
+    return y, aux

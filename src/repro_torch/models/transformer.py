@@ -44,6 +44,7 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.sharding import (Identity, data_parallel,
@@ -70,7 +71,7 @@ CACHE_DTYPE = torch.bfloat16
 #: bf16 (the same values as its per-use cast)
 BF16_WEIGHTS = frozenset({
     "wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "in_proj",
-    "x_proj", "out_proj", "w_a", "w_i", "lm_head"})
+    "x_proj", "out_proj", "w_a", "w_i", "lm_head", "wkv_a", "wkv_b"})
 
 
 # ====================================================================== #
@@ -175,6 +176,10 @@ def block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                 "cross": _cross_cache(cfg, batch, device)}
     if kind == "enc_self":
         return None
+    if kind in ("mla_dense", "mla_moe"):
+        raise NotImplementedError(
+            f"{kind}: latent attention trains here; serving it (a cache of "
+            "its latent) is not implemented")
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -339,6 +344,19 @@ def block_init(gen, cfg: ArchConfig, kind: str) -> dict:
         else:
             p["ln_mlp"] = norm()
             p["mlp"] = mlp_params(gen, d, cfg.d_ff, gated)
+    elif kind in ("mla_dense", "mla_moe"):
+        p["ln_attn"] = norm()
+        p["attn"] = mla_lib.mla_params(gen, cfg)
+        if kind == "mla_moe":
+            p["ln_moe"] = norm()
+            p["moe"] = moe_lib.moe_params(gen, d, cfg.d_ff, cfg.n_experts,
+                                          gated, n_routed=cfg.n_routed)
+            if cfg.shared_d_ff:
+                p["moe"]["shared"] = mlp_params(gen, d, cfg.shared_d_ff,
+                                                gated)
+        else:
+            p["ln_mlp"] = norm()
+            p["mlp"] = mlp_params(gen, d, cfg.dense_d_ff or cfg.d_ff, gated)
     elif kind == "mamba":
         p["ln"] = norm()
         p["mamba"] = ssm_lib.mamba_params(
@@ -379,7 +397,7 @@ def block_apply(
     data-parallel model on a mesh (``sharding.data_parallel``: no cache,
     no memory, no MoE routing) runs whole on each rank's local rows."""
     aux = x.new_zeros((), dtype=torch.float32)
-    if cache is None and memory is None and kind != "moe" \
+    if cache is None and memory is None and kind not in ("moe", "mla_moe") \
             and data_parallel(x, p):
         x = local_block(lambda h, q: block_apply(
             q, h, cfg, kind, attention=attention, scan=scan)[0], x, p)
@@ -404,6 +422,16 @@ def block_apply(
         else:
             h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
         return shard_act(x + h, "resid"), new_cache, aux
+    if kind in ("mla_dense", "mla_moe"):
+        x = shard_act(x + mla_lib.mla_attention(
+            p["attn"], norm("ln_attn", x), cfg, attention=attention), "resid")
+        if kind == "mla_moe":
+            h, aux = moe_lib.moe_apply_held(
+                p["moe"], norm("ln_moe", x), top_k=cfg.moe_top_k,
+                offset=cfg.expert_offset)
+        else:
+            h = mlp_apply(p["mlp"], norm("ln_mlp", x), cfg.mlp_act)
+        return shard_act(x + h, "resid"), None, aux
     if kind == "mamba":
         h, new_cache = ssm_lib.mamba_apply(
             p["mamba"], norm("ln", x), d_state=cfg.ssm_state,
